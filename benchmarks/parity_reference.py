@@ -26,7 +26,7 @@ pose (the capture was taken with the fly camera; we keep the default eye
 azimuth/target and match the capture's horizon height).
 
 Outputs: docs/gallery/parity_direct_ours.png, .._sidebyside.png and a
-metrics line. Run on CPU (deterministic, ~1 min) or TPU.
+metrics line. Runs on the CPU (deterministic, ~1 min) or the GPU.
 """
 
 from __future__ import annotations
@@ -53,10 +53,9 @@ def _tf(t=(0, 0, 0), yaw=0.0, pitch=0.0, roll=0.0, s=1.0):
     return m
 
 
-# Coordinate-descent fit against assets/textures/DirectLighting.PNG
-# (benchmarks/parity_fit.py, round 3: luma correlation 0.80 eyeballed ->
-# 0.939 fitted, luma MAE 0.080 -> 0.046 — the round-2 residual was POSE
-# error, not shading error).
+# Coordinate-descent fit against assets/textures/DirectLighting.PNG (luma
+# correlation 0.80 eyeballed -> 0.939 fitted, luma MAE 0.080 -> 0.046: the
+# residual had been POSE error, not shading error).
 POSE_A = dict(t=(-8.4, 3.325, 3.0), yaw=0.075, pitch=0.575, roll=-1.375,
               s=5.125)
 POSE_B = dict(t=(4.6, 6.075, -2.6), yaw=-0.337, pitch=-0.863, roll=0.187,
@@ -171,7 +170,7 @@ def main():
     sd = sc.build(accel="none")
     out = render_sample(
         sd, default_options(), cp, w, h, mode="realtime",
-        impl="auto", env_kind=int(sd["env"]["kind"]),
+        env_kind=int(sd["env"]["kind"]),
     )
     ours = srgb(np.asarray(out["direct"]))
 

@@ -1,26 +1,22 @@
 """Acceleration structure: implicit balanced BVH over Morton-sorted triangles.
 
-TPU-native replacement for the Fallback Layer's BLAS build
+JAX replacement for the Fallback Layer's BLAS build
 (/root/reference/libs/DXRFramework/Helpers/BottomLevelASGenerator.cpp) and its
-compute-shader BVH. Design choices driven by the hardware:
+compute-shader BVH:
 
   * **Morton sort + median split**: triangles are sorted by the Morton code
-    of their centroid (`jax.lax.sort`), and the tree is the implicit complete
-    binary tree over that order — node k's children are 2k+1/2k+2, leaves are
-    K consecutive sorted triangles. No child pointers, no variable topology:
-    the whole build is a sort plus log2(N) vectorized min/max reductions, and
-    traversal indexing is pure arithmetic (heap layout). This is the
-    LBVH-with-median-splits variant of Karras-style builders, chosen over
-    pointer-chasing radix trees because XLA wants static shapes and regular
-    gathers.
-  * **K triangles per leaf** (default 8/16): leaves map onto the vectorized
-    brute-force leaf test (the same Plücker kernel as ops/intersect) so the
-    VPU always has lanes to chew on.
+    of their centroid, and the tree is the implicit complete binary tree
+    over that order — node k's children are 2k+1/2k+2, leaves are K
+    consecutive sorted triangles. No child pointers, no variable topology:
+    the whole build is a sort plus log2(N) vectorized min/max reductions
+    (the LBVH-with-median-splits variant of Karras-style builders), so it
+    also runs on the device (`build_bvh_device`).
   * Empty padding leaves get +inf AABBs and degenerate triangles, which
     self-mask in traversal and intersection.
 
-The build runs in jnp (device) and also has a NumPy path for host builds.
-A C++ SAH builder for maximum-quality static scenes lives in native/.
+The build runs on the host (NumPy) and on the device (jnp). A C++ SAH
+builder for maximum-quality static scenes lives in native/. Both emit the
+explicit node arrays that ``accel/traverse.pack_bvh`` lays out for the walk.
 """
 
 from __future__ import annotations
@@ -212,8 +208,8 @@ def build_bvh_device(v0, e1, e2, num_tris: int, leaf_size: int = 8) -> dict:
 
 
 # --------------------------------------------------------------------------- #
-# Explicit node-array format — the unified interchange consumed by traversal
-# kernels. Both builders emit it:
+# Explicit node-array format — the interchange both builders emit and
+# accel/traverse.pack_bvh consumes:
 #   nodes_lo/hi [M, 3] f32; child [M, 2] i32
 #     internal: child[m] = {left, right}
 #     leaf:     child[m] = {-(start+1), count}   (range into `order`)
@@ -252,25 +248,18 @@ def build_bvh_sah(
     e2: np.ndarray,
     num_tris: int,
     leaf_size: int = 8,
-    spatial: bool | None = None,
+    spatial: bool = False,
 ) -> dict | None:
     """Maximum-quality binned-SAH build via the native C++ builder
-    (native/sah_bvh.cpp), with SBVH spatial splits by default (straddling
+    (native/sah_bvh.cpp), optionally with SBVH spatial splits (straddling
     triangles clipped + referenced by several leaves — len(order) may exceed
     num_tris; every consumer resolves slots through `order`). Returns
     explicit node arrays, or None when the native toolchain is unavailable
-    (callers fall back to the Morton build). spatial=None reads the
-    SBVH_SPATIAL env knob — default OFF: measured SAH-cost gains are small
-    on this framework's scene classes (susanne -8%, random soup -1.2%) and
-    duplicated references can ENLARGE packet unions (a packet straddling
-    the split plane visits both copies), so spatial splits stay opt-in
-    until a hardware A/B shows a win (benchmarks/round3_batch.py)."""
-    import os
-
+    (callers fall back to the Morton build). Spatial splits are off by
+    default: their SAH-cost gains on this framework's scene classes are
+    small (susanne -8%, random soup -1.2% in SAH cost)."""
     from ..utils import native
 
-    if spatial is None:
-        spatial = os.environ.get("SBVH_SPATIAL", "0") == "1"
     res = native.build_sah_native(
         np.asarray(v0, np.float32)[:num_tris],
         np.asarray(e1, np.float32)[:num_tris],
@@ -286,90 +275,6 @@ def build_bvh_sah(
         "nodes_hi": nodes_hi,
         "child": child,
         "order": order,
-    }
-
-
-def collapse_wide(
-    nodes_lo: np.ndarray,
-    nodes_hi: np.ndarray,
-    child: np.ndarray,
-    width: int = 8,
-) -> dict:
-    """Collapse explicit binary node arrays into WIDTH-wide nodes.
-
-    The TPU-native wide-BVH step (SURVEY §7 hard part 1: "shallow wide BVH
-    (BVH4/8 -> vectorized node tests)"): starting at each wide root we
-    repeatedly expand the largest-surface-area internal slot until `width`
-    slots are filled, so one packet slab test covers 8 subtrees on sublanes.
-    Binary leaves are kept verbatim (same slot ranges), so the wide tree
-    shares its triangle layout with the binary one.
-
-    Returns {"w_lo"/"w_hi" [W, width, 3] f32, "w_child" [W, width] f32,
-    "w_count" [W, width] f32} with the encoding:
-      internal slot: w_child = wide child id,  w_count = -1
-      leaf slot:     w_child = -(start+1),     w_count = tri count
-      empty slot:    w_child = 0,              w_count = 0, box at +BIG
-    """
-    big = np.float32(3.0e38)
-    m = len(child)
-    if m == 0:
-        return {
-            "w_lo": np.full((1, width, 3), big, np.float32),
-            "w_hi": np.full((1, width, 3), big, np.float32),
-            "w_child": np.zeros((1, width), np.float32),
-            "w_count": np.zeros((1, width), np.float32),
-        }
-    ext = np.maximum(nodes_hi - nodes_lo, 0.0)
-    area = ext[:, 0] * ext[:, 1] + ext[:, 1] * ext[:, 2] + ext[:, 2] * ext[:, 0]
-    is_leaf = child[:, 0] < 0
-
-    w_lo, w_hi, w_child, w_count = [], [], [], []
-    # (wide_id, slot, binary_node) patches for internal slots filled after
-    # their subtree's wide id is known.
-    wide_of_binary: dict[int, int] = {}
-    todo = [0]
-    while todo:
-        b_root = todo.pop()
-        slots = [int(b_root)]
-        while len(slots) < width:
-            cand = [s for s in slots if not is_leaf[s]]
-            if not cand:
-                break
-            s = max(cand, key=lambda n: area[n])
-            slots.remove(s)
-            slots.extend((int(child[s, 0]), int(child[s, 1])))
-        wid = len(w_lo)
-        wide_of_binary[int(b_root)] = wid
-        lo = np.full((width, 3), big, np.float32)
-        hi = np.full((width, 3), big, np.float32)
-        cv = np.zeros((width,), np.float32)
-        cn = np.zeros((width,), np.float32)
-        for k, s in enumerate(slots):
-            lo[k] = nodes_lo[s]
-            hi[k] = nodes_hi[s]
-            if is_leaf[s]:
-                cv[k] = float(child[s, 0])  # already -(start+1)
-                cn[k] = float(child[s, 1])
-            else:
-                cv[k] = float(s)  # patched to wide id below
-                cn[k] = -1.0
-                todo.append(int(s))
-        w_lo.append(lo)
-        w_hi.append(hi)
-        w_child.append(cv)
-        w_count.append(cn)
-
-    w_child = np.stack(w_child)
-    w_count = np.stack(w_count)
-    internal = w_count < -0.5
-    w_child[internal] = np.vectorize(
-        lambda b: float(wide_of_binary[int(b)])
-    )(w_child[internal]) if internal.any() else w_child[internal]
-    return {
-        "w_lo": np.stack(w_lo),
-        "w_hi": np.stack(w_hi),
-        "w_child": w_child,
-        "w_count": w_count,
     }
 
 
@@ -408,7 +313,7 @@ def traverse_nodes_numpy(nodes: dict, tri_test, o, d, t_min, t_max) -> tuple:
 
 
 # --------------------------------------------------------------------------- #
-# Reference traversal (NumPy; correctness oracle for kernels)
+# Reference traversal (NumPy; correctness oracle for the walk)
 # --------------------------------------------------------------------------- #
 def ray_aabb(o, inv_d, lo, hi, t_min, t_max):
     t0 = (lo - o) * inv_d

@@ -1,40 +1,33 @@
 """Two-level acceleration structure: TLAS over instances, shared per-mesh BLAS.
 
-TPU-native re-expression of the reference's TLAS/BLAS split
+JAX re-expression of the reference's TLAS/BLAS split
 (/root/reference/Helpers/TopLevelASGenerator.cpp:64-83,309+,
 /root/reference/libs/DXRFramework/RtScene.cpp:27-51): each unique mesh gets
 ONE object-space BLAS (built once), the TLAS is a small BVH over instance
-world AABBs, and every instance stores its inverse transform. Traversal
-(ops/traverse2_pallas.py) transforms the whole ray packet at an instance
-leaf — a handful of vector FMAs — and runs the BLAS inner loop in object
-space. Because the transform is affine, the object-space ray parameter t
-equals the world-space one, so hits from different instances compare
-directly without rescaling.
+world AABBs, and every instance stores its inverse transform. The walk
+(``accel/traverse.py``) maps the ray into an instance's object space when it
+enters that instance and runs the BLAS below it there. Because the map is
+affine, the object-space ray parameter t equals the world-space one, so hits
+from different instances compare directly.
 
-Animation = TLAS REFIT (`refit_instances`): the analogue of the D3D12
+Animation = TLAS REFIT (`refit_instances_arrays`): the analogue of the D3D12
 PERFORM_UPDATE acceleration-structure flag. Topology (the Morton order of
 instances at build time) is frozen; per frame we recompute instance world
 AABBs + inverse/normal matrices and reduce the implicit-heap node boxes
-bottom-up — O(instances) device work, zero triangle re-baking, zero BVH
-rebuild (VERDICT round-1 item 4 / ROADMAP item 1).
+bottom-up — O(instances) device work, no triangle re-baking, no BVH rebuild.
 
-Data layout (all consumed by ops/traverse2_pallas.py):
-  tlas_nodes [8, Mt] f32 — implicit-heap binary TLAS in the shared node
-    format (lo3/hi3/left/right); leaf: left = -(slot+1), right = 1, where
-    `slot` is the column into inst_rows (instances in frozen Morton order).
-  inst_rows [32, Ipad] f32 — per-instance column:
-    rows 0-8  inverse rotation A (row-major; x_obj = A x_world + b)
-    rows 9-11 b
-    row 12    blas_root (node id into blas_nodes)
-    row 13    mat_override (-1 = keep mesh material ids)
-    row 14    original instance index (for user-visible inst ids)
-    row 15    blas fat root (node id into blasf_nodes; written by
-              _refit_device and read as iv[15] by the fat two-level kernel)
-  blas_nodes [8, Mb] f32 — all unique-mesh BLASes concatenated (children and
-    leaf slot starts rebased at concat).
-  mt_rows [S, 128] f32 — object-space Plücker rows in BLAS leaf-slot order
-    (same layout as ops/traverse_pallas.pack_for_traversal).
-  slot_tri [S] i32 — leaf slot -> concatenated object-space triangle index.
+Device pytree (``build_two_level``):
+  blas_nodes [Nb, 12], blas_tris [L, K, 16], blas_tri [L*K],
+    blas_v0 [L*K, 3]: every unique mesh's BLAS in the walk's layout,
+    concatenated (static).
+  child, child_inst [Nt+Nb, 2]: child codes of the combined node array, TLAS
+    nodes first; an instance child of a TLAS node names the instance slot
+    (static, frozen topology).
+  tlas_nodes [Nt, 12]: TLAS child boxes in world space (refit).
+  xf [I+1, 12]: per instance slot the inverse transform rows A (row-major)
+    and b, x_obj = A x_world + b; the last row is the identity (refit).
+  inst_nm [I, 3, 3], inst_mat_override [I], inst_orig [I]: normal matrix,
+    material override and original instance index per slot (refit).
 """
 
 from __future__ import annotations
@@ -46,8 +39,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from .traverse import EMPTY, STACK_DEPTH, pack_bvh
+
 BIG = 3.0e38
-TLAS_PAD = 128  # lane tile for node/instance arrays
 
 
 @jax.tree_util.register_static
@@ -60,55 +54,6 @@ class HostStatic:
     the traced computation like a static_argname, hashed by identity."""
 
     value: object
-
-
-def _mt_pack_rows(v0, e1, e2):
-    """Object-space Plücker pack as kernel rows [T, 128] (layout identical to
-    ops/traverse_pallas.pack_for_traversal: group g coefficient c at lane
-    g*16+c)."""
-    pn = np.cross(e1, e2)
-    c1 = np.cross(v0, e2)
-    c2 = np.cross(v0, e1)
-    d0 = np.sum(v0 * pn, axis=-1)
-    t = len(v0)
-    mt = np.zeros((4, t, 16), np.float32)
-    mt[0, :, 0:3] = -pn
-    mt[1, :, 0:3] = c1
-    mt[1, :, 3:6] = e2
-    mt[2, :, 0:3] = -c2
-    mt[2, :, 3:6] = -e1
-    mt[3, :, 6:9] = pn
-    mt[3, :, 9] = -d0
-    rows = np.zeros((t, 128), np.float32)
-    rows[:, :64] = np.transpose(mt, (1, 0, 2)).reshape(t, 64)
-    return rows
-
-
-def _regularize_leaves(nodes: dict, leaf_size: int):
-    """Rewrite variable leaf ranges to fixed-K slot ranges (same scheme as
-    pack_for_traversal). Returns (new_child [M,2] i64, slot_tri [S] i64)."""
-    child = np.asarray(nodes["child"], np.int64)
-    order = np.asarray(nodes["order"], np.int64)
-    leaf_mask = child[:, 0] < 0
-    leaf_ids = np.nonzero(leaf_mask)[0]
-    n_leaves = len(leaf_ids)
-    starts = -child[leaf_ids, 0] - 1
-    counts = np.clip(child[leaf_ids, 1], 0, leaf_size)
-    lane = np.arange(leaf_size)[None, :]
-    src = np.clip(starts[:, None] + lane, 0, max(len(order) - 1, 0))
-    vals = order[src] if len(order) else np.full_like(src, -1)
-    in_count = lane < counts[:, None]
-    slots2d = np.where(in_count & (vals >= 0), vals, -1)
-    key = np.where(slots2d >= 0, 0, 1)
-    sort_idx = np.argsort(key, axis=1, kind="stable")
-    slots2d = np.take_along_axis(slots2d, sort_idx, axis=1)
-    slot_tri = (
-        slots2d.reshape(-1) if n_leaves else np.full((leaf_size,), -1, np.int64)
-    )
-    new_child = child.copy()
-    new_child[leaf_ids, 0] = -(np.arange(n_leaves) * leaf_size + 1)
-    new_child[leaf_ids, 1] = (slots2d >= 0).sum(axis=1)
-    return new_child, slot_tri
 
 
 def _build_mesh_blas(v0, e1, e2, leaf_size: int) -> dict:
@@ -129,11 +74,33 @@ class TlasRefitContext:
     inst_order: np.ndarray  # [I] original index per sorted slot
     slot_mesh_lo: np.ndarray  # [I, 3] object AABB of each slot's mesh
     slot_mesh_hi: np.ndarray  # [I, 3]
-    slot_blas_root: np.ndarray  # [I] f32
-    slot_blas_fat_root: np.ndarray  # [I] f32 (root into blasf_nodes)
-    slot_mat_override: np.ndarray  # [I] f32 (-1 = none)
+    slot_mat_override: np.ndarray  # [I] i32 (-1 = none)
     levels: int  # TLAS depth (2**levels leaf slots)
     num_instances: int
+
+
+def _tlas_topology(levels: int, num_inst: int, slot_root: np.ndarray):
+    """Static child codes / instance ids of the fat TLAS over the implicit
+    heap (instance leaf slots at heap ids >= 2**levels - 1). Subtrees that
+    hold only padding slots become EMPTY children."""
+    n_leaves = 1 << levels
+    first_leaf = n_leaves - 1
+    if first_leaf == 0:
+        child = np.array([[slot_root[0], EMPTY]], np.int64)
+        inst = np.array([[0, -1]], np.int64)
+        return child, inst
+    c = 2 * np.arange(first_leaf)[:, None] + np.array([[1, 2]])  # heap ids
+    leftmost = c.copy()
+    while (leftmost < first_leaf).any():
+        leftmost = np.where(leftmost < first_leaf, 2 * leftmost + 1, leftmost)
+    slot = c - first_leaf
+    is_inst = c >= first_leaf
+    child = np.where(
+        leftmost - first_leaf >= num_inst, EMPTY,
+        np.where(is_inst, slot_root[np.clip(slot, 0, num_inst - 1)], c),
+    )
+    inst = np.where(is_inst & (slot < num_inst), slot, -1)
+    return child, inst
 
 
 def build_two_level(
@@ -141,12 +108,12 @@ def build_two_level(
     inst_mesh: np.ndarray,  # [I] mesh index per instance
     transforms: np.ndarray,  # [I, 4, 4]
     mat_override: np.ndarray | None = None,  # [I] int (-1 = keep mesh ids)
-    leaf_size: int = 16,
+    leaf_size: int = 8,
 ) -> tuple[dict, TlasRefitContext]:
     """Build the full two-level structure. Returns (device pytree, refit ctx).
 
-    The pytree's tlas_nodes/inst_rows are exactly what `refit_instances`
-    regenerates per frame; blas_nodes/mt_rows/slot_tri are immutable.
+    The pytree's tlas_nodes/xf/inst_* are exactly what
+    `refit_instances_arrays` regenerates per frame; the rest is immutable.
     """
     inst_mesh = np.asarray(inst_mesh, np.int64)
     transforms = np.asarray(transforms, np.float32)
@@ -155,86 +122,30 @@ def build_two_level(
         mat_override = np.full((num_inst,), -1, np.int64)
     mat_override = np.asarray(mat_override, np.int64)
 
-    # ---- per-mesh BLAS, concatenated with rebased ids ---------------------
-    from ..ops.traverse_pallas import fat_nodes
-
-    blas_cols = []  # [8, m] blocks
-    blasf_cols = []  # [16, f_pad] fat blocks
-    mt_blocks = []
-    slot_blocks = []
+    # ---- per-mesh BLAS, concatenated with rebased codes --------------------
+    packs = []
     mesh_root = np.zeros((len(meshes),), np.int64)
-    mesh_fat_root = np.zeros((len(meshes),), np.int64)
     mesh_lo = np.zeros((len(meshes), 3), np.float32)
     mesh_hi = np.zeros((len(meshes), 3), np.float32)
-    node_base = 0
-    fat_base = 0
-    row_base = 0
-    tri_base = 0
+    node_base = leaf_base = tri_base = 0
+    blas_depth = 0
     for k, (v0, e1, e2) in enumerate(meshes):
-        v0 = np.asarray(v0, np.float32)
-        e1 = np.asarray(e1, np.float32)
-        e2 = np.asarray(e2, np.float32)
         nodes = _build_mesh_blas(v0, e1, e2, leaf_size)
-        new_child, slot_tri = _regularize_leaves(nodes, leaf_size)
-        m = len(new_child)
+        pk, need = pack_bvh(nodes, v0, e1, e2, leaf_size)
+        blas_depth = max(blas_depth, need)
+        ch = pk["child"].astype(np.int64)
+        pk["child"] = np.where(
+            ch == EMPTY, EMPTY,
+            np.where(ch >= 0, ch + node_base, ch - leaf_base),
+        )
+        pk["tri"] = np.where(pk["tri"] >= 0, pk["tri"] + tri_base, -1)
         mesh_root[k] = node_base
-        mesh_fat_root[k] = fat_base
         mesh_lo[k] = np.asarray(nodes["nodes_lo"], np.float32)[0]
         mesh_hi[k] = np.asarray(nodes["nodes_hi"], np.float32)[0]
-
-        # fat (children-boxes-in-parent) twin of this BLAS, rebased: leaf
-        # ptrs by the concatenated mt-row base, internal ptrs by fat_base
-        fat = fat_nodes(
-            np.asarray(nodes["nodes_lo"], np.float32),
-            np.asarray(nodes["nodes_hi"], np.float32),
-            new_child,
-        )
-        for side in range(2):
-            meta = fat[13 + 2 * side]
-            fat[12 + 2 * side] += np.where(
-                meta > 0.5, float(row_base),
-                np.where(meta < -0.5, float(fat_base), 0.0),
-            )
-        blasf_cols.append(fat)
-        fat_base += fat.shape[1]
-
-        is_leaf = new_child[:, 0] < 0
-        child = new_child.copy()
-        child[is_leaf, 0] -= row_base  # -(start+1) -> -(start+row_base+1)
-        child[~is_leaf, 0] += node_base
-        child[~is_leaf, 1] += node_base
-
-        cols = np.zeros((8, m), np.float32)
-        cols[0:3] = np.asarray(nodes["nodes_lo"], np.float32).T
-        cols[3:6] = np.asarray(nodes["nodes_hi"], np.float32).T
-        cols[6] = child[:, 0].astype(np.float32)
-        cols[7] = child[:, 1].astype(np.float32)
-        blas_cols.append(cols)
-
-        # mt rows in slot order (padded slots degenerate/zero -> self-mask)
-        s = len(slot_tri)
-        s_pad = max(-(-s // 128) * 128, 128)
-        tri_rows = _mt_pack_rows(v0, e1, e2)
-        rows = np.zeros((s_pad, 128), np.float32)
-        valid = slot_tri >= 0
-        rows[:s][valid] = tri_rows[slot_tri[valid]]
-        mt_blocks.append(rows)
-
-        slot_pad = np.full((s_pad,), -1, np.int64)
-        slot_pad[:s][valid] = slot_tri[valid] + tri_base
-        slot_blocks.append(slot_pad)
-
-        node_base += m
-        row_base += s_pad
+        node_base += len(pk["nodes"])
+        leaf_base += len(pk["tris"])
         tri_base += len(v0)
-
-    m_total = node_base
-    m_pad = max(-(-m_total // TLAS_PAD) * TLAS_PAD, TLAS_PAD)
-    blas_nodes = np.zeros((8, m_pad), np.float32)
-    blas_nodes[:, :m_total] = np.concatenate(blas_cols, axis=1)
-    blasf_nodes = np.concatenate(blasf_cols, axis=1)  # pads are 128-aligned
-    mt_rows = np.concatenate(mt_blocks, axis=0)
-    slot_tri_all = np.concatenate(slot_blocks).astype(np.int32)
+        packs.append(pk)
 
     # ---- TLAS over instance world AABBs (implicit heap; Morton order) -----
     lo_w, hi_w = _world_aabbs_numpy(
@@ -249,26 +160,42 @@ def build_two_level(
     levels = 0
     while (1 << levels) < num_inst:
         levels += 1
+    if levels + blas_depth + 1 > STACK_DEPTH:
+        raise ValueError(
+            f"two-level tree needs {levels + blas_depth + 1} stack entries; "
+            f"the walk has {STACK_DEPTH}"
+        )
+    n_tlas = max((1 << levels) - 1, 1)
+    # BLAS nodes follow the TLAS nodes in the combined array.
+    slot_root = mesh_root[inst_mesh[inst_order]] + n_tlas
+    tl_child, tl_inst = _tlas_topology(levels, num_inst, slot_root)
+    blas_child = np.concatenate([p["child"] for p in packs])
+    blas_child = np.where(blas_child >= 0, blas_child + n_tlas, blas_child)
 
     ctx = TlasRefitContext(
         inst_order=inst_order,
         slot_mesh_lo=mesh_lo[inst_mesh][inst_order],
         slot_mesh_hi=mesh_hi[inst_mesh][inst_order],
-        slot_blas_root=mesh_root[inst_mesh][inst_order].astype(np.float32),
-        slot_blas_fat_root=mesh_fat_root[inst_mesh][inst_order].astype(
-            np.float32
-        ),
-        slot_mat_override=mat_override[inst_order].astype(np.float32),
+        slot_mat_override=mat_override[inst_order].astype(np.int32),
         levels=levels,
         num_instances=num_inst,
     )
-    dyn = refit_instances_arrays(ctx, jnp.asarray(transforms))
     tl = {
-        "blas_nodes": jnp.asarray(blas_nodes),
-        "blasf_nodes": jnp.asarray(blasf_nodes),
-        "mt_rows": jnp.asarray(mt_rows),
-        "slot_tri": jnp.asarray(slot_tri_all),
-        **dyn,
+        "blas_nodes": jnp.asarray(np.concatenate([p["nodes"] for p in packs])),
+        "blas_tris": jnp.asarray(np.concatenate([p["tris"] for p in packs])),
+        "blas_tri": jnp.asarray(
+            np.concatenate([p["tri"] for p in packs]).astype(np.int32)
+        ),
+        "blas_v0": jnp.asarray(np.concatenate([p["v0"] for p in packs])),
+        "child": jnp.asarray(
+            np.concatenate([tl_child, blas_child]).astype(np.int32)
+        ),
+        "child_inst": jnp.asarray(
+            np.concatenate(
+                [tl_inst, np.full_like(blas_child, -1)]
+            ).astype(np.int32)
+        ),
+        **refit_instances_arrays(ctx, transforms),
     }
     return tl, ctx
 
@@ -295,123 +222,55 @@ def _refit_device(
     inst_order,  # [I] i32
     slot_mesh_lo,  # [I, 3]
     slot_mesh_hi,
-    slot_blas_root,  # [I] f32
-    slot_blas_fat_root,  # [I] f32
-    slot_mat_override,  # [I] f32
+    slot_mat_override,  # [I] i32
     levels: int,
     num_instances: int,
 ):
     i = num_instances
+    hp = jax.lax.Precision.HIGHEST  # f32 products (no TF32) for the rays' maps
     tf = transforms[inst_order]
     rot = tf[:, :3, :3]
     trans = tf[:, :3, 3]
     a = jnp.linalg.inv(rot)  # [I, 3, 3]
-    # HIGHEST: default-precision contractions run bf16 on the MXU; these
-    # inverse/offset rows feed every two-level traversal's ray transforms,
-    # so bf16 here would inject ~1e-3 relative error into all hit t's.
-    b = -jnp.einsum("ikj,ij->ik", a, trans,
-                    precision=jax.lax.Precision.HIGHEST)
+    b = -jnp.einsum("ikj,ij->ik", a, trans, precision=hp)
     nm = jnp.transpose(a, (0, 2, 1))  # normal matrix = inv(R)^T
 
     corners = _aabb_corners(slot_mesh_lo, slot_mesh_hi, jnp)
     world = jnp.einsum("ikj,icj->ick", rot, corners,
-                       precision=jax.lax.Precision.HIGHEST) + trans[:, None, :]
+                       precision=hp) + trans[:, None, :]
     lo_w = world.min(axis=1)
     hi_w = world.max(axis=1)
 
-    # implicit heap reduce (padding leaves at +BIG never hit)
+    # Implicit heap reduce. Padding slots are inverted boxes that reduce
+    # away; the children that point at them are EMPTY (static topology).
     n_leaves = 1 << levels
-    slot_lo = jnp.full((n_leaves, 3), BIG, jnp.float32).at[:i].set(lo_w)
-    slot_hi = jnp.full((n_leaves, 3), -BIG, jnp.float32).at[:i].set(hi_w)
-    los = [slot_lo]
-    his = [slot_hi]
+    los = [jnp.full((n_leaves, 3), BIG, jnp.float32).at[:i].set(lo_w)]
+    his = [jnp.full((n_leaves, 3), -BIG, jnp.float32).at[:i].set(hi_w)]
     for _ in range(levels):
         los.append(jnp.minimum(los[-1][0::2], los[-1][1::2]))
         his.append(jnp.maximum(his[-1][0::2], his[-1][1::2]))
-    # Padding leaves: the inverted (+BIG, -BIG) boxes reduce correctly into
-    # parents, but an inverted box PASSES the per-axis min/max slab test
-    # (it's a no-op interval) — so patch emitted leaf boxes to a point at
-    # +BIG, which genuinely misses.
-    los[0] = los[0].at[i:].set(BIG)
-    his[0] = his[0].at[i:].set(BIG)
-    nodes_lo = jnp.concatenate(list(reversed(los)), axis=0)  # [Mt, 3]
-    nodes_hi = jnp.concatenate(list(reversed(his)), axis=0)
+    heap_lo = jnp.concatenate(list(reversed(los)), axis=0)  # heap order
+    heap_hi = jnp.concatenate(list(reversed(his)), axis=0)
 
-    mt = 2 * n_leaves - 1
-    mt_pad = max(-(-mt // TLAS_PAD) * TLAS_PAD, TLAS_PAD)
     first_leaf = n_leaves - 1
-    ids = np.arange(mt)
-    left = np.where(
-        ids >= first_leaf, -(ids - first_leaf + 1), 2 * ids + 1
-    ).astype(np.float32)
-    right = np.where(ids >= first_leaf, 1, 2 * ids + 2).astype(np.float32)
-    tlas = jnp.zeros((8, mt_pad), jnp.float32)
-    tlas = tlas.at[0:3, :mt].set(nodes_lo.T)
-    tlas = tlas.at[3:6, :mt].set(nodes_hi.T)
-    tlas = tlas.at[6, :mt].set(left)
-    tlas = tlas.at[7, :mt].set(right)
-
-    # ---- fat TLAS (children boxes at the parent; static topology) ---------
-    # Internal heap ids ARE fat node ids (0..first_leaf-1); a child id >=
-    # first_leaf is an instance leaf whose slot is id - first_leaf. Only the
-    # BOXES are dynamic (gathered from the freshly-reduced pyramid); ptr and
-    # meta rows are compile-time constants of the frozen topology.
-    fcount = max(first_leaf, 1)
-    f_pad = max(-(-fcount // TLAS_PAD) * TLAS_PAD, TLAS_PAD)
-    tlasf = jnp.zeros((16, f_pad), jnp.float32)
-    tlasf = tlasf.at[0:12, :].set(BIG)
     if first_leaf == 0:
-        # single-instance TLAS: one fat node, c0 = instance 0, c1 empty
-        tlasf = tlasf.at[0:3, 0].set(nodes_lo[first_leaf])
-        tlasf = tlasf.at[3:6, 0].set(nodes_hi[first_leaf])
-        tlasf = tlasf.at[12, 0].set(0.0)
-        tlasf = tlasf.at[13, 0].set(1.0)
+        empty = jnp.full((1, 3), BIG, jnp.float32)
+        tlas = jnp.concatenate([lo_w, hi_w, empty, empty], axis=1)
     else:
-        fids = np.arange(first_leaf)
-        for side, cids in ((0, 2 * fids + 1), (1, 2 * fids + 2)):
-            is_inst = cids >= first_leaf
-            slot = cids - first_leaf
-            ptr = np.where(is_inst, slot, cids).astype(np.float32)
-            meta = np.where(
-                is_inst, np.where(slot < i, 1.0, 0.0), -1.0
-            ).astype(np.float32)
-            base = 6 * side
-            tlasf = tlasf.at[base : base + 3, :first_leaf].set(
-                nodes_lo[cids].T
-            )
-            tlasf = tlasf.at[base + 3 : base + 6, :first_leaf].set(
-                nodes_hi[cids].T
-            )
-            tlasf = tlasf.at[12 + 2 * side, :first_leaf].set(
-                jnp.asarray(ptr)
-            )
-            tlasf = tlasf.at[13 + 2 * side, :first_leaf].set(
-                jnp.asarray(meta)
-            )
+        c0 = 2 * np.arange(first_leaf) + 1
+        tlas = jnp.concatenate(
+            [heap_lo[c0], heap_hi[c0], heap_lo[c0 + 1], heap_hi[c0 + 1]],
+            axis=1,
+        )
 
-    i_pad = max(-(-n_leaves // TLAS_PAD) * TLAS_PAD, TLAS_PAD)
-    rows = jnp.zeros((32, i_pad), jnp.float32)
-    rows = rows.at[0:9, :i].set(a.reshape(i, 9).T)
-    rows = rows.at[9:12, :i].set(b.T)
-    rows = rows.at[12, :i].set(slot_blas_root)
-    rows = rows.at[13, :i].set(slot_mat_override)
-    rows = rows.at[14, :i].set(inst_order.astype(jnp.float32))
-    rows = rows.at[15, :i].set(slot_blas_fat_root)
-
-    nm_pad = jnp.zeros((i_pad, 3, 3), jnp.float32).at[:i].set(nm)
-    ovr_pad = (
-        jnp.full((i_pad,), -1, jnp.int32)
-        .at[:i]
-        .set(slot_mat_override.astype(jnp.int32))
-    )
-    orig_pad = jnp.zeros((i_pad,), jnp.int32).at[:i].set(inst_order)
+    xf = jnp.concatenate([a.reshape(i, 9), b], axis=1)
+    identity = jnp.asarray([[1, 0, 0, 0, 1, 0, 0, 0, 1, 0, 0, 0]], jnp.float32)
     return {
         "tlas_nodes": tlas,
-        "tlasf_nodes": tlasf,
-        "inst_rows": rows,
-        "inst_nm": nm_pad,
-        "inst_mat_override": ovr_pad,
-        "inst_orig": orig_pad,
+        "xf": jnp.concatenate([xf, identity], axis=0),
+        "inst_nm": nm,
+        "inst_mat_override": slot_mat_override,
+        "inst_orig": inst_order,
     }
 
 
@@ -423,8 +282,6 @@ def refit_instances_arrays(ctx: TlasRefitContext, transforms) -> dict:
         jnp.asarray(ctx.inst_order),
         jnp.asarray(ctx.slot_mesh_lo),
         jnp.asarray(ctx.slot_mesh_hi),
-        jnp.asarray(ctx.slot_blas_root),
-        jnp.asarray(ctx.slot_blas_fat_root),
         jnp.asarray(ctx.slot_mat_override),
         ctx.levels,
         ctx.num_instances,
@@ -432,13 +289,30 @@ def refit_instances_arrays(ctx: TlasRefitContext, transforms) -> dict:
 
 
 # --------------------------------------------------------------------------- #
-# jnp reference traversal (correctness oracle; CLAUDE.md lockstep rule)
+# Brute-force two-level oracle (tests only: it unrolls a loop over instances)
 # --------------------------------------------------------------------------- #
+def _object_rays(tl: dict, slot: int, origins, directions):
+    x = tl["xf"][slot]
+    a, b = x[0:9].reshape(3, 3), x[9:12]
+    hp = jax.lax.Precision.HIGHEST
+    return (jnp.matmul(origins, a.T, precision=hp) + b,
+            jnp.matmul(directions, a.T, precision=hp))
+
+
+def _mesh_tris(scene: dict, slot: int) -> dict:
+    meta = scene["tlas_meta"].value
+    lo_t, hi_t = meta["mesh_tri_ranges"][meta["slot_mesh"][slot]]
+    return lo_t, {
+        k: scene[f"{k}_obj"][lo_t:hi_t]
+        for k in ("v0", "e1", "e2", "pn", "c1", "c2", "d0")
+    }
+
+
 def two_level_closest_jnp(scene: dict, origins, directions, t_min, t_max,
                           cull: bool):
     """Brute-force two-level closest hit: per instance, transform rays into
-    object space and test against its mesh's triangle range. Static Python
-    loop over instances — the oracle for the Pallas kernel and small scenes.
+    object space and test against its mesh's triangle range. The oracle for
+    the walk at small instance counts.
 
     Returns {"hit", "t", "tri" (global object-space index), "u", "v",
     "inst" (slot into the sorted instance table)}.
@@ -446,7 +320,6 @@ def two_level_closest_jnp(scene: dict, origins, directions, t_min, t_max,
     from ..ops import intersect
 
     meta = scene["tlas_meta"].value  # HostStatic (see Scene.build_two_level)
-    tl = scene["tlas"]
     n = origins.shape[0]
     best = {
         "t": jnp.full((n,), np.inf, jnp.float32),
@@ -457,19 +330,8 @@ def two_level_closest_jnp(scene: dict, origins, directions, t_min, t_max,
     }
     t_max = jnp.broadcast_to(jnp.asarray(t_max, jnp.float32), (n,))
     for slot in range(meta["num_instances"]):
-        a = tl["inst_rows"][0:9, slot].reshape(3, 3)
-        b = tl["inst_rows"][9:12, slot]
-        # HIGHEST: a default-precision @ is bf16 on the MXU — this is the
-        # parity ORACLE, and bf16 transforms put ~1e-3 relative error on
-        # every object-space t (found via the kernel-parity gate's median).
-        hp = jax.lax.Precision.HIGHEST
-        o2 = jnp.matmul(origins, a.T, precision=hp) + b
-        d2 = jnp.matmul(directions, a.T, precision=hp)
-        lo_t, hi_t = meta["mesh_tri_ranges"][meta["slot_mesh"][slot]]
-        sub = {
-            k: scene[f"{k}_obj"][lo_t:hi_t]
-            for k in ("v0", "e1", "e2", "pn", "c1", "c2", "d0")
-        }
+        o2, d2 = _object_rays(scene["tlas"], slot, origins, directions)
+        lo_t, sub = _mesh_tris(scene, slot)
         h = intersect.intersect_closest(
             sub, o2, d2, t_min, jnp.minimum(t_max, best["t"]),
             cull_backface=cull,
@@ -495,19 +357,9 @@ def two_level_any_jnp(scene: dict, origins, directions, t_min, t_max):
     from ..ops import intersect
 
     meta = scene["tlas_meta"].value
-    tl = scene["tlas"]
-    n = origins.shape[0]
-    occ = jnp.zeros((n,), bool)
+    occ = jnp.zeros((origins.shape[0],), bool)
     for slot in range(meta["num_instances"]):
-        a = tl["inst_rows"][0:9, slot].reshape(3, 3)
-        b = tl["inst_rows"][9:12, slot]
-        hp = jax.lax.Precision.HIGHEST
-        o2 = jnp.matmul(origins, a.T, precision=hp) + b
-        d2 = jnp.matmul(directions, a.T, precision=hp)
-        lo_t, hi_t = meta["mesh_tri_ranges"][meta["slot_mesh"][slot]]
-        sub = {
-            k: scene[f"{k}_obj"][lo_t:hi_t]
-            for k in ("v0", "e1", "e2", "pn", "c1", "c2", "d0")
-        }
+        o2, d2 = _object_rays(scene["tlas"], slot, origins, directions)
+        _, sub = _mesh_tris(scene, slot)
         occ = occ | intersect.intersect_any(sub, o2, d2, t_min, t_max)
     return occ

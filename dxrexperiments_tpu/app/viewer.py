@@ -1,6 +1,6 @@
 """Interactive terminal viewer: fly camera + live parameter surface.
 
-TPU-native replacement for the reference's interactive shell — Win32 window
+JAX replacement for the reference's interactive shell — Win32 window
 + message pump (/root/reference/src/utils/Win32Application.cpp), DirectInput
 polling (libs/MiniEngine/GameInput.cpp), imgui parameter panels
 (src/ProgressiveRaytracingPipeline.cpp:249-312) and the fps/MRays title bar
@@ -59,6 +59,7 @@ from ..models.progressive import ProgressiveRaytracingPipeline
 from ..models.realtime import RealtimeRaytracingPipeline
 from ..scene.materials import Material
 from ..scene.scene import rebake_material
+from ..utils.runtime import PLATFORMS, enable_compile_cache, select_platform
 from ..utils.image import write_png
 from ..utils.stats import FrameStats
 from .headless import build_scene
@@ -486,7 +487,7 @@ class ViewerApp:
                 p.mark_dirty()
 
     def _edit_material(self, field: str, fn) -> None:
-        """Edit material 0 and re-bake the fused attribute tables — the
+        """Edit material 0 and re-bake the material table — the
         imgui material sliders + frameDirty restart
         (/root/reference/src/ProgressiveRaytracingPipeline.cpp:253-267)."""
         self.mat0 = dataclasses.replace(
@@ -721,7 +722,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--scene", default="cornell-glossy")
     ap.add_argument("--size", default=None, help="WxH render size (default: fit terminal)")
-    ap.add_argument("--platform", default=None)
+    ap.add_argument(
+        "--platform", default=None, choices=PLATFORMS,
+        help="run on this JAX platform or fail (default: JAX's own choice)",
+    )
     ap.add_argument("--max-frames", type=int, default=0, help="exit after N frames (0 = run until 'x')")
     ap.add_argument("--script", default=None, help="scripted key sequence (for testing), e.g. 'wwwd p x'")
     ap.add_argument(
@@ -765,10 +769,11 @@ def main(argv=None) -> int:
     )
     args = ap.parse_args(argv)
 
-    if args.platform:
-        import jax
-
-        jax.config.update("jax_platforms", args.platform)
+    try:
+        select_platform(args.platform)
+    except RuntimeError as e:
+        ap.error(str(e))
+    enable_compile_cache()
 
     use_kitty = args.display == "kitty" or (
         args.display == "auto" and KittyDisplay.supported()

@@ -1,6 +1,6 @@
 """Pinhole camera with U/V/W ray-generation basis.
 
-TPU-native replacement for ``Math::Camera``
+JAX replacement for ``Math::Camera``
 (/root/reference/libs/MiniEngine/Camera.h:21-115) plus the pipeline-side
 ``calculateCameraVariables``
 (/root/reference/src/ProgressiveRaytracingPipeline.cpp:151-168).

@@ -1,6 +1,6 @@
 """Fly-camera controller (WASD/QE + heading/pitch with momentum).
 
-TPU-native replacement for ``GameCore::CameraController``
+JAX replacement for ``GameCore::CameraController``
 (/root/reference/libs/MiniEngine/CameraController.cpp:21-131). Input arrives
 as a plain :class:`InputState` snapshot instead of DirectInput/XInput polling
 (/root/reference/libs/MiniEngine/GameInput.cpp) so the controller is pure,

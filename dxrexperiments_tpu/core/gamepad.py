@@ -1,6 +1,6 @@
 """Analog gamepad input via the Linux joystick API.
 
-TPU-native replacement for ``GameInput``'s XInput polling
+JAX replacement for ``GameInput``'s XInput polling
 (/root/reference/libs/MiniEngine/GameInput.cpp:303-330): the reference reads
 the left stick into forward/strafe analog axes and the right stick into
 yaw/pitch, applies a radial deadzone, and feeds the result into the fly

@@ -1,6 +1,6 @@
 """Frame timer with fixed/variable timestep.
 
-TPU-native replacement for ``StepTimer``
+JAX replacement for ``StepTimer``
 (/root/reference/include/utils/StepTimer.h:15-183). Uses
 ``time.perf_counter_ns`` instead of QPC; keeps the reference's 10 MHz tick
 convention and 1/4-second discontinuity clamp.

@@ -1,16 +1,17 @@
 """Vector math over SoA ``[..., 3]`` arrays.
 
-TPU-native replacement for the reference's SIMD vector math
+JAX replacement for the reference's SIMD vector math
 (``/root/reference/libs/MiniEngine/Math/Vector.h`` and DirectXMath usage
 throughout). Instead of 4-wide SSE vectors, every op is written over batched
-``[..., 3]`` jnp arrays so the VPU vectorizes across rays/pixels, not across
-xyz lanes.
+``[..., 3]`` jnp arrays so the device vectorizes across rays/pixels, not
+across xyz components.
 
 All functions are jit-safe (static shapes, no Python branching on values).
 """
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 EPS = 1e-8
@@ -110,19 +111,24 @@ def refract(i: jnp.ndarray, n: jnp.ndarray, ior: jnp.ndarray):
     return jnp.where(ok[..., None], r, jnp.zeros_like(r)), ok
 
 
+# 3x3 transforms at full f32 precision: a default-precision product may run
+# at reduced precision (TF32) on the device, which geometry cannot afford.
+_HIGHEST = jax.lax.Precision.HIGHEST
+
+
 def transform_points(m: jnp.ndarray, p: jnp.ndarray) -> jnp.ndarray:
     """Apply a [3,4] or [4,4] affine matrix to points [..., 3]."""
     r = m[:3, :3]
     t = m[:3, 3]
-    return p @ r.T + t
+    return jnp.matmul(p, r.T, precision=_HIGHEST) + t
 
 
 def transform_vectors(m: jnp.ndarray, v: jnp.ndarray) -> jnp.ndarray:
     """Apply the linear part of a [3,4]/[4,4] matrix to direction vectors."""
-    return v @ m[:3, :3].T
+    return jnp.matmul(v, m[:3, :3].T, precision=_HIGHEST)
 
 
 def transform_normals(m: jnp.ndarray, n: jnp.ndarray) -> jnp.ndarray:
     """Transform normals by the inverse-transpose of the linear part."""
     inv = jnp.linalg.inv(m[:3, :3])
-    return n @ inv  # (inv.T).T = inv
+    return jnp.matmul(n, inv, precision=_HIGHEST)  # (inv.T).T = inv

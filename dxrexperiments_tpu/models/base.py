@@ -1,6 +1,6 @@
 """Render pipeline interface.
 
-TPU-native replacement for the abstract ``RaytracingPipeline`` contract
+JAX replacement for the abstract ``RaytracingPipeline`` contract
 (/root/reference/include/RaytracingPipeline.h:8-39). GPU resources
 (output UAVs, SBTs, constant buffers) become jnp arrays and pytrees; the
 ``render`` method is a thin host wrapper around one jitted step.

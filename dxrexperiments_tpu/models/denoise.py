@@ -1,6 +1,6 @@
 """DenoiseCompositor: separable joint-bilateral filter + composite + tonemap.
 
-TPU-native replacement for the reference's two compute passes
+JAX replacement for the reference's two compute passes
 (/root/reference/src/DenoiseCompositor.cpp,
 assets/shaders/BilateralFilter.hlsli, DenoiseCommon.hlsli): pass 0 filters
 the indirect-specular AOV horizontally with direct lighting as the joint
@@ -12,13 +12,12 @@ Design notes:
     (slider 1..25). Its disk-like weight table evaluates to 0 for every tap
     beyond ~0.96*radius, so a STATIC 51-tap loop with the same traced weight
     formula is bit-equivalent for any radius <= 25 — which is exactly what
-    XLA wants (static shapes; taps are shifted adds that fuse on the VPU).
-    A Pallas row-cached variant lives in ops/bilateral_pallas.py.
+    XLA wants (static shapes; taps are shifted adds that fuse).
   * D3D out-of-bounds texture reads return 0; we reproduce with zero-padded
     shifts.
   * Group-shared row caching (BilateralFilter.hlsli:40-73) is an HLSL
-    bandwidth optimization; on TPU the fused shift chain already stays in
-    VMEM/registers.
+    bandwidth optimization; XLA fuses the shift chain into one pass per
+    axis instead.
 """
 
 from __future__ import annotations
@@ -113,39 +112,23 @@ def linear_to_srgb(color: jnp.ndarray, gamma: jnp.ndarray) -> jnp.ndarray:
     return jnp.power(jnp.maximum(color, 0.0), 1.0 / gamma)
 
 
-@functools.partial(jax.jit, static_argnames=("impl",))
+@jax.jit
 def denoise_composite(
     direct_lighting: jnp.ndarray,
     indirect_specular: jnp.ndarray,
     params: dict,
-    impl: str = "auto",
 ) -> jnp.ndarray:
     """Full DenoiseCompositor::dispatch equivalent
     (/root/reference/src/DenoiseCompositor.cpp:109-148): H pass over the
     indirect-specular AOV -> V pass -> composite + exposure + tonemap + gamma.
 
     Inputs are [H, W, 3] linear HDR; returns [H, W, 3] display-ready.
-    impl: 'auto' uses the fused Pallas row kernels on TPU (input/guide read
-    once per pass) and the XLA shift chain elsewhere.
     """
-    if impl == "auto":
-        impl = "pallas" if jax.default_backend() == "tpu" else "jnp"
     radius = params["max_kernel_size"].astype(jnp.float32)
     dbg = params["debug_visualize"]
 
-    if impl in ("pallas", "pallas_interpret"):
-        from ..ops.bilateral_pallas import bilateral_pass
-
-        interp = impl == "pallas_interpret"
-
-        def run_pass(img, axis):
-            return bilateral_pass(
-                img, direct_lighting, radius, axis=axis, interpret=interp
-            )
-    else:
-
-        def run_pass(img, axis):
-            return _bilateral_pass(img, direct_lighting, radius, axis=axis)
+    def run_pass(img, axis):
+        return _bilateral_pass(img, direct_lighting, radius, axis=axis)
 
     # Pass 0 (horizontal): filter indirect specular guided by direct lighting.
     # debugVisualize==2 bypasses the filter (DenoiseCommon.hlsli:50-54).
@@ -159,12 +142,11 @@ def denoise_composite(
     return composite_tail(direct_lighting, pass1, params)
 
 
-@functools.partial(jax.jit, static_argnames=("impl",))
+@jax.jit
 def denoise_composite_frames(
     direct_lighting: jnp.ndarray,
     indirect_specular: jnp.ndarray,
     params: dict,
-    impl: str = "auto",
 ) -> jnp.ndarray:
     """K frames' denoise+composite in ONE dispatch (the frames-in-flight
     batch, models/realtime.py): inputs are [K, H, W, 3]; lax.map compiles
@@ -173,12 +155,12 @@ def denoise_composite_frames(
 
     def body(args):
         d, s = args
-        return denoise_composite(d, s, params, impl=impl)
+        return denoise_composite(d, s, params)
 
     return jax.lax.map(body, (direct_lighting, indirect_specular))
 
 
-@functools.partial(jax.jit, static_argnames=("impl",))
+@jax.jit
 def denoise_composite_frames_temporal(
     direct_lighting: jnp.ndarray,
     indirect_specular: jnp.ndarray,
@@ -186,7 +168,6 @@ def denoise_composite_frames_temporal(
     history: jnp.ndarray,
     history_valid: jnp.ndarray,
     alpha: jnp.ndarray,
-    impl: str = "auto",
 ):
     """Temporal variant of the frames batch: the exponential blend is
     sequential across frames, so a lax.scan carries the history through the
@@ -198,7 +179,7 @@ def denoise_composite_frames_temporal(
     def body(carry, args):
         h, valid = carry
         d, s = args
-        out = denoise_composite(d, s, params, impl=impl)
+        out = denoise_composite(d, s, params)
         h2 = jnp.where(valid, temporal_blend(h, out, alpha), out)
         return (h2, jnp.ones_like(valid)), h2
 

@@ -1,13 +1,16 @@
 """Multi-chip rendering: pixel-tile + sample (SPP) sharding over a device mesh.
 
 The reference is single-GPU (SURVEY.md §2.8); its scaling axes re-imagined for
-a TPU pod are:
+several cards are:
 
   * tile parallelism — shard image rows across the "tile" mesh axis (zero
     collectives until composite/blit),
   * sample parallelism — shard samples-per-pixel across the "spp" axis, with
-    one mean-reduction per frame riding ICI,
+    one mean-reduction per frame over the interconnect,
   * scene replication — triangles/BVH/materials are read-only and replicated.
+
+The mesh is plain ``jax.devices()`` reshaped: the cards of one host are
+joined all to all, so nothing is shaped for a particular topology.
 
 Implementation is GSPMD-style: we annotate shardings on the stacked-sample
 render and let XLA partition the whole traced computation and insert the
@@ -23,7 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from ..trace.integrator import render_sample
+from ..trace.integrator import render_sample, scene_geometry
 
 
 def make_render_mesh(
@@ -38,7 +41,11 @@ def make_render_mesh(
         n_tile = n // n_spp
     elif n_spp is None:
         n_spp = n // n_tile
-    assert n_tile * n_spp == n, (n_tile, n_spp, n)
+    if n_tile * n_spp != n or len(set(devices)) != n:
+        raise ValueError(
+            f"mesh {n_tile}x{n_spp} needs {n_tile * n_spp} distinct devices, "
+            f"got {n} ({len(set(devices))} distinct)"
+        )
     dev_array = np.asarray(devices).reshape(n_tile, n_spp)
     return Mesh(dev_array, ("tile", "spp"))
 
@@ -117,33 +124,12 @@ def replicate_scene(scene: dict, mesh: Mesh) -> dict:
 
 
 # --------------------------------------------------------------------------
-# shard_map paths: row-sharded FUSED megakernels + halo-exchange denoiser.
+# shard_map paths: row-sharded wavefront render + halo-exchange denoiser.
 #
-# The GSPMD functions above let XLA partition the wavefront render; the
-# megakernels (ops/fused_sample_pallas.py, ops/fused_traverse_pallas.py) are
-# single Pallas launches XLA cannot split, so the multi-chip form runs one
-# launch per device over explicit shard_map: each device renders its row
-# block of the global image (py0/full_height keep NDC and the TEA pixel
-# seeds GLOBAL, so the sharded image equals the single-chip image), sample
-# batches shard over "spp" with one psum riding ICI.
+# Each device renders its row block of the global image (row0/full_height
+# keep NDC and the TEA pixel seeds GLOBAL, so the sharded image equals the
+# single-device image); sample batches shard over "spp" with one psum.
 # --------------------------------------------------------------------------
-
-
-def _route_fused(scene: dict, mode: str, ao_only: bool, impl: str):
-    """(kind, interpret) routing mirror of make_progressive_step /
-    make_render_step: 'brute' | 'traverse' | 'wavefront'."""
-    from ..ops import fused_sample_pallas as fsp
-    from ..ops import fused_traverse_pallas as ftp
-    from ..trace.integrator import resolve_impl
-
-    resolved = resolve_impl(impl)
-    pallas = resolved in ("pallas", "pallas_interpret")
-    interpret = resolved == "pallas_interpret"
-    if pallas and fsp.supports_fused(scene, mode, ao_only):
-        return "brute", interpret
-    if pallas and ftp.supports_fused_traverse(scene, mode, ao_only):
-        return "traverse", interpret
-    return "wavefront", interpret
 
 
 def make_sharded_progressive_step(
@@ -152,26 +138,24 @@ def make_sharded_progressive_step(
     height: int,
     mesh: Mesh,
     samples_per_step: int = 1,
-    impl: str = "auto",
     ao_only: bool = False,
 ):
-    """Compile the multi-chip progressive accumulation step.
+    """Compile the multi-device progressive accumulation step.
 
     Image rows shard over the "tile" mesh axis, the per-frame sample batch
-    over "spp" (one psum-mean per step). Per shard the render routes exactly
-    like the single-chip make_progressive_step: fused brute megakernel →
-    fused traversal megakernel → wavefront render_sample, all row-offset via
-    py0/full_height so the result matches the single-chip image.
+    over "spp" (one psum-mean per step). Per shard the render is the
+    single-device wavefront render_sample, row-offset via row0/full_height
+    so the result matches the single-device image.
 
-    Returns jitted ``step(accum, options, cameras, lights, env,
-    max_iterations)`` with accum row-sharded P("tile") and cameras stacked
-    [S] (sharded over "spp"); accumCount advances by S like the single-chip
-    samples_per_step path.
+    Returns ``step(accum, options, cameras, lights, env, max_iterations,
+    geo_arg=None)`` with accum row-sharded P("tile") (donated) and cameras
+    stacked [S] (sharded over "spp"); accumCount advances by S like the
+    single-device samples_per_step path. Geometry is an argument, placed
+    replicated on every device once, here; callers keep their per-step
+    constants (options, lights, env) resident the same way with
+    ``replicate_scene`` instead of handing the step single-device arrays to
+    copy out on every call.
     """
-    from ..ops import fused_sample_pallas as fsp
-    from ..ops import fused_traverse_pallas as ftp
-    from ..trace.integrator import render_sample
-
     n_tile, n_spp = mesh.shape["tile"], mesh.shape["spp"]
     if height % n_tile:
         raise ValueError(f"height {height} % tile axis {n_tile} != 0")
@@ -181,33 +165,22 @@ def make_sharded_progressive_step(
         )
     h_local = height // n_tile
     env_kind = int(scene["env"]["kind"])
-    kind, interpret = _route_fused(scene, "progressive", ao_only, impl)
-    geo = {k: v for k, v in scene.items() if k not in ("lights", "env")}
+    geo = replicate_scene(scene_geometry(scene), mesh)  # placed once
     s = samples_per_step
 
-    def shard_body(accum, options, cameras, lights, env, max_iterations):
-        full = dict(geo, lights=lights, env=env)
+    def shard_body(accum, options, cameras, lights, env, max_iterations,
+                   geo_in):
+        full = dict(geo_in, lights=lights, env=env)
         py0 = (jax.lax.axis_index("tile") * h_local).astype(jnp.float32)
-        if kind == "brute":
-            local_sum = fsp.fused_progressive_sum(
-                full, options, cameras, width, h_local, env_kind,
-                interpret=interpret, py0=py0, full_height=height,
-            )
-        elif kind == "traverse":
-            local_sum = ftp.fused_traverse_progressive_sum(
-                full, options, cameras, width, h_local, env_kind,
-                interpret=interpret, py0=py0, full_height=height,
-            )
-        else:
-            def one(cam):
-                return render_sample(
-                    full, options, cam, width, h_local, mode="progressive",
-                    ao_only=ao_only, impl=impl, env_kind=env_kind,
-                    row0=py0, full_height=height,
-                )["color"]
 
-            local_sum = jnp.sum(jax.vmap(one)(cameras), axis=0)
+        def one(cam):
+            return render_sample(
+                full, options, cam, width, h_local, mode="progressive",
+                ao_only=ao_only, env_kind=env_kind,
+                row0=py0, full_height=height,
+            )["color"]
 
+        local_sum = jnp.sum(jax.lax.map(one, cameras), axis=0)
         mean = jax.lax.psum(local_sum, "spp") / s
         count = cameras["accum_count"][0]
         new = (count * accum + s * mean) / (count + s)
@@ -216,14 +189,20 @@ def make_sharded_progressive_step(
         )
 
     row = P("tile", None, None)
-    smap = jax.shard_map(
+    smap = jax.jit(jax.shard_map(
         shard_body,
         mesh=mesh,
-        in_specs=(row, P(), P("spp"), P(), P(), P()),
+        in_specs=(row, P(), P("spp"), P(), P(), P(), P()),
         out_specs=row,
         check_vma=False,
-    )
-    return jax.jit(smap, donate_argnums=(0,))
+    ), donate_argnums=(0,))
+
+    def step(accum, options, cameras, lights, env, max_iterations,
+             geo_arg=None):
+        return smap(accum, options, cameras, lights, env, max_iterations,
+                    geo if geo_arg is None else geo_arg)
+
+    return step
 
 
 def _halo_rows(x: jnp.ndarray, r: int, n_tile: int) -> jnp.ndarray:
@@ -295,24 +274,19 @@ def make_sharded_realtime_step(
     width: int,
     height: int,
     mesh: Mesh,
-    impl: str = "auto",
     denoise: bool = True,
 ):
-    """Compile the multi-chip realtime frame: row-sharded raytrace (fused
-    realtime megakernel per shard when eligible, wavefront otherwise) plus
-    the row-sharded DenoiseCompositor whose vertical bilateral pass
-    exchanges a ±MAX_EXTENT row halo over ICI — rows never leave their
-    device between raygen and tonemap.
+    """Compile the multi-device realtime frame: row-sharded wavefront
+    raytrace plus the row-sharded DenoiseCompositor whose vertical bilateral
+    pass exchanges a ±MAX_EXTENT row halo between neighbouring devices —
+    rows never leave their device between raygen and tonemap.
 
     Requires a tile-only mesh (spp axis of size 1; realtime is 1 spp by
-    construction). Returns jitted ``step(options, camera, lights, env,
-    denoise_params) -> dict`` of row-sharded AOVs plus "display" (the
-    denoised composite) when denoise=True.
+    construction). Returns ``step(options, camera, lights, env,
+    denoise_params, geo_arg=None) -> dict`` of row-sharded AOVs plus
+    "display" (the denoised composite) when denoise=True. Geometry is placed
+    replicated once, as in make_sharded_progressive_step.
     """
-    from ..ops import fused_sample_pallas as fsp
-    from ..ops import fused_traverse_pallas as ftp
-    from ..trace.integrator import render_sample
-
     n_tile, n_spp = mesh.shape["tile"], mesh.shape["spp"]
     if n_spp != 1:
         raise ValueError("realtime sharding uses a tile-only mesh (n_spp=1)")
@@ -320,28 +294,16 @@ def make_sharded_realtime_step(
         raise ValueError(f"height {height} % tile axis {n_tile} != 0")
     h_local = height // n_tile
     env_kind = int(scene["env"]["kind"])
-    kind, interpret = _route_fused(scene, "realtime", False, impl)
-    geo = {k: v for k, v in scene.items() if k not in ("lights", "env")}
+    geo = replicate_scene(scene_geometry(scene), mesh)  # placed once
 
-    def shard_body(options, camera, lights, env, dparams):
-        full = dict(geo, lights=lights, env=env)
+    def shard_body(options, camera, lights, env, dparams, geo_in):
+        full = dict(geo_in, lights=lights, env=env)
         py0 = (jax.lax.axis_index("tile") * h_local).astype(jnp.float32)
-        if kind == "brute":
-            out = fsp.fused_realtime_outputs(
-                full, options, camera, width, h_local, env_kind,
-                interpret=interpret, py0=py0, full_height=height,
-            )
-        elif kind == "traverse":
-            out = ftp.fused_traverse_realtime_outputs(
-                full, options, camera, width, h_local, env_kind,
-                interpret=interpret, py0=py0, full_height=height,
-            )
-        else:
-            out = render_sample(
-                full, options, camera, width, h_local, mode="realtime",
-                jitter_scale=10.0, impl=impl, env_kind=env_kind,
-                row0=py0, full_height=height,
-            )
+        out = render_sample(
+            full, options, camera, width, h_local, mode="realtime",
+            jitter_scale=10.0, env_kind=env_kind,
+            row0=py0, full_height=height,
+        )
         if denoise:
             out = dict(
                 out,
@@ -363,11 +325,16 @@ def make_sharded_realtime_step(
     if denoise:
         out_specs["display"] = img
 
-    smap = jax.shard_map(
+    smap = jax.jit(jax.shard_map(
         shard_body,
         mesh=mesh,
-        in_specs=(P(), P(), P(), P(), P()),
+        in_specs=(P(), P(), P(), P(), P(), P()),
         out_specs=out_specs,
         check_vma=False,
-    )
-    return jax.jit(smap)
+    ))
+
+    def step(options, camera, lights, env, denoise_params, geo_arg=None):
+        return smap(options, camera, lights, env, denoise_params,
+                    geo if geo_arg is None else geo_arg)
+
+    return step

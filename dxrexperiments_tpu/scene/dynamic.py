@@ -1,11 +1,10 @@
 """Dynamic instancing: device-side scene re-baking.
 
 The reference updates instance transforms by rebuilding the TLAS on the GPU
-(/root/reference/libs/DXRFramework/Helpers/TopLevelASGenerator.cpp). The
-TPU-native answer is regular recompute instead of irregular traversal: a
+(/root/reference/libs/DXRFramework/Helpers/TopLevelASGenerator.cpp). Here a
 jitted re-bake turns (base-mesh arrays, per-instance transforms) into the
-flattened world-space scene arrays + kernel packs entirely ON DEVICE — no
-host round trip per frame. For animated transforms:
+flattened world-space scene arrays entirely ON DEVICE — no host round trip
+per frame. For animated transforms:
 
     base = prepare_base(scene_data_of_base_mesh, num_instances)
     scene_t = bake_instances(base, transforms_t, materials_override)
@@ -30,32 +29,14 @@ def refit_scene_instances(scene: dict, transforms) -> dict:
     [I, 4, 4] transforms — O(instances) device work, no triangle re-bake, no
     BVH rebuild. The analogue of a D3D12 TLAS update-build
     (/root/reference/Helpers/TopLevelASGenerator.cpp:85-203 with
-    PERFORM_UPDATE). Render via make_render_step(..., dynamic=True) so the
-    refitted arrays flow as jit arguments (no recompile per frame)."""
+    PERFORM_UPDATE). Pass the result's geometry as the step's geo_arg
+    (make_render_step, make_progressive_step): the refitted arrays flow as
+    jit arguments, with no recompile per frame."""
     from ..accel import tlas as tlas_mod
 
     ctx = scene["tlas_meta"].value["refit_ctx"]
     dyn = tlas_mod.refit_instances_arrays(ctx, transforms)
-    new = dict(scene, tlas=dict(scene["tlas"], **dyn))
-    # Keep the PRIME t_max-seeding table (scene.select_prime_triangles)
-    # world-space-current under animation: re-derive the few selected
-    # triangles from their object-space sources + owning instances. The
-    # SELECTION stays frozen from build (a heuristic, not a correctness
-    # input); only the coordinates must track the transforms.
-    src = scene["tlas_meta"].value.get("prime_src")
-    if src is not None and "prime_v0" in scene:
-        t = jnp.asarray(transforms)[src["inst"]]
-        rot, trn = t[:, :3, :3], t[:, :3, 3]
-        # HIGHEST: a DEFAULT-precision (bf16-MXU) contraction here would put
-        # ~1.5e-3 relative error on the prime coordinates — larger than the
-        # conservative seeding margin in _prime_seed_tmax.
-        hi = functools.partial(
-            jnp.einsum, precision=jax.lax.Precision.HIGHEST
-        )
-        new["prime_v0"] = hi("nij,nj->ni", rot, jnp.asarray(src["v0"])) + trn
-        new["prime_e1"] = hi("nij,nj->ni", rot, jnp.asarray(src["e1"]))
-        new["prime_e2"] = hi("nij,nj->ni", rot, jnp.asarray(src["e2"]))
-    return new
+    return dict(scene, tlas=dict(scene["tlas"], **dyn))
 
 
 def prepare_base(base_scene: dict, num_instances: int) -> dict:
@@ -78,16 +59,18 @@ def _bake(mesh: dict, materials: dict, transforms: jnp.ndarray,
     rot = transforms[:, :3, :3]  # [I, 3, 3]
     trans = transforms[:, :3, 3]  # [I, 3]
     inv_rot_t = jnp.transpose(jnp.linalg.inv(rot), (0, 2, 1))  # normal matrices
+    # HIGHEST: f32 products (no TF32) for world-space geometry.
+    mm = functools.partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
 
     def one(i):
         r, t = rot[i], trans[i]
-        v0 = mesh["v0"] @ r.T + t
-        p1 = (mesh["v0"] + mesh["e1"]) @ r.T + t
-        p2 = (mesh["v0"] + mesh["e2"]) @ r.T + t
+        v0 = mm(mesh["v0"], r.T) + t
+        p1 = mm(mesh["v0"] + mesh["e1"], r.T) + t
+        p2 = mm(mesh["v0"] + mesh["e2"], r.T) + t
         nm = inv_rot_t[i]
 
         def nrm(n):
-            out = n @ nm.T
+            out = mm(n, nm.T)
             l2 = jnp.sum(out * out, axis=-1, keepdims=True)
             return out * jax.lax.rsqrt(jnp.maximum(l2, 1e-24))
 
@@ -108,36 +91,10 @@ def _bake(mesh: dict, materials: dict, transforms: jnp.ndarray,
     d0 = jnp.sum(v0 * pn, axis=-1)
 
     t_total = v0.shape[0]
-    mid = flat["mat_id"]
-
-    # Kernel packs (same layouts as Scene.build, assembled on device).
-    mt = jnp.zeros((4, t_total, 16), jnp.float32)
-    mt = mt.at[0, :, 0:3].set(-pn)
-    mt = mt.at[1, :, 0:3].set(c1)
-    mt = mt.at[1, :, 3:6].set(e2)
-    mt = mt.at[2, :, 0:3].set(-c2)
-    mt = mt.at[2, :, 3:6].set(-e1)
-    mt = mt.at[3, :, 6:9].set(pn)
-    mt = mt.at[3, :, 9].set(-d0)
-
-    attr = jnp.zeros((32, t_total), jnp.float32)
-    attr = attr.at[0:3].set(flat["n0"].T)
-    attr = attr.at[3:6].set(flat["n1"].T)
-    attr = attr.at[6:9].set(flat["n2"].T)
-    attr = attr.at[9].set(mid.astype(jnp.float32))
-    attr = attr.at[10:13].set(materials["albedo"][mid].T)
-    attr = attr.at[13:16].set(materials["specular"][mid].T)
-    attr = attr.at[16:19].set(materials["emissive"][mid].T)
-    attr = attr.at[19].set(materials["emissive_strength"][mid])
-    attr = attr.at[20].set(materials["reflectivity"][mid])
-    attr = attr.at[21].set(materials["roughness"][mid])
-    attr = attr.at[22].set(materials["ior"][mid])
-    attr = attr.at[23].set(materials["type"][mid].astype(jnp.float32))
 
     return dict(
         flat,
         pn=pn, c1=c1, c2=c2, d0=d0,
-        mt_pack=mt, attr_pack=attr,
         num_tris=jnp.asarray(t_total, jnp.int32),
         inst_id=jnp.repeat(
             jnp.arange(num_instances, dtype=jnp.int32), t_total // num_instances
@@ -154,8 +111,7 @@ def bake_instances(
 ) -> dict:
     """Re-bake the instanced scene on device. The result renders through the
     normal pipelines (brute-force path; compose with build_bvh_device for a
-    per-frame BVH). NOTE: total triangles must be a valid kernel size —
-    pad the base mesh so I * T_base is a multiple of 8 (<=512) or 512."""
+    per-frame BVH)."""
     i = base["num_instances"]
     if mat_override is None:
         mat_override = jnp.full((i,), -1, jnp.int32)

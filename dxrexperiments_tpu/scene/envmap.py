@@ -1,6 +1,6 @@
 """Environment lighting: constant, procedural gradient, lat-long, cubemap.
 
-TPU-native replacement for the reference's miss-shader environment sampling
+JAX replacement for the reference's miss-shader environment sampling
 (``sampleEnvironment``, /root/reference/assets/shaders/RaytracingCommon.hlsli:149-159):
 a cubemap SampleLevel with a commented-out lat-long alternative
 (``wsVectorToLatLong``, RaytracingUtils.hlsli:214-220). Texture units become
@@ -30,11 +30,8 @@ _DUMMY_QUAD = np.zeros((1, 12), np.float32)
 def _quad_pack_latlong(img: np.ndarray) -> np.ndarray:
     """[H, W, 3] -> [H*W, 12]: each texel carries its 2x2 bilinear
     footprint (c00, c10, c01, c11) with x-wrap and y-clamp baked in, so a
-    bilinear sample is ONE gather instead of four. TPU XLA gathers cost
-    ~25 ns per gathered row regardless of index locality or row width (a
-    12-lane row gathers in ~1.5x the time of a 3-lane row, measured on
-    v5e: 78 vs 4x52 ms for 2M samples) — the quad layout is a 2.7x win at
-    4x texture memory, bit-exact with the 4-gather formulation."""
+    bilinear sample is ONE gather instead of four, at 4x texture memory,
+    bit-exact with the 4-gather formulation."""
     right = np.roll(img, -1, axis=1)  # x+1 with wrap
     down = np.concatenate([img[1:], img[-1:]], axis=0)  # y+1 clamped
     down_right = np.concatenate([right[1:], right[-1:]], axis=0)
@@ -120,9 +117,8 @@ def _bilinear_wrap_u(
     reference's WRAP sampler on a lat-long would wrap both; poles clamp).
 
     With a quad-packed texture ([H*W, 12], see _quad_pack_latlong) the four
-    footprint texels come from ONE gather — bit-exact and 2.7x faster on
-    v5e; the 4-gather path remains for quad-less callers and as the test
-    oracle."""
+    footprint texels come from ONE gather, bit-exact with the 4-gather
+    path, which remains for quad-less callers and as the test oracle."""
     h, w = img.shape[0], img.shape[1]
     x = u * w - 0.5
     y = v * h - 0.5

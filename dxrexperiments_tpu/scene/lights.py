@@ -20,13 +20,8 @@ DEFAULT_DIR_COLOR = (0.9, 0.9, 0.9, 1.0)
 
 # Stratified samples drawn on each area light per shading point (soft
 # shadows). 4 = a 2x2 stratum grid; BEYOND-reference (the DXR rig has no
-# area lights) so no parity constraint pins the value. Consumed by both the
-# wavefront integrator (_direct_lighting) and the fused traversal megakernel
-# (ops/fused_traverse_pallas.py) — the two paths must agree draw-for-draw.
-# NOTE: the fused kernel carries one occlusion row per shadow direction in a
-# 32-row scratch (ops/fused_traverse_pallas.HR_OCC0 = 24), so the full rig's
-# direction count 1 + 1 + AREA_LIGHT_SAMPLES must stay <= 8 (asserted
-# in _make_ft_kernel).
+# area lights) so no parity constraint pins the value. Consumed by the
+# wavefront integrator (_direct_lighting).
 AREA_LIGHT_SAMPLES = 4
 
 
@@ -37,10 +32,7 @@ def area_light_draws(seed):
     su x sv grid (remainder samples unstratified). Returns a list of
     (r0, r1) pairs shaped like `seed`.
 
-    The single source of truth for both consumers — the wavefront oracle
-    (trace/integrator._direct_lighting) and the fused traversal
-    megakernel's host precompute (ops/fused_traverse_pallas._ft_dispatch)
-    — which must stay bit-exact draw-for-draw."""
+    Used by the wavefront integrator (trace/integrator._direct_lighting)."""
     import math
 
     import jax.numpy as jnp

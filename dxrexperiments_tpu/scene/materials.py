@@ -7,7 +7,7 @@ refraction, and an integer type (0 diffuse, 1 glossy, 2 glass).
 
 Host-side materials are small dataclasses; the scene builder stacks them into
 an SoA ``[M, ...]`` pytree so shading gathers per-hit material rows — the
-TPU-native replacement for per-hit-group root constants
+JAX replacement for per-hit-group root constants
 (/root/reference/src/ProgressiveRaytracingPipeline.cpp:220-226).
 """
 
@@ -79,30 +79,3 @@ def stack_materials(materials: list[Material]) -> dict:
         "ior": jnp.asarray(np.array([m.ior for m in materials], np.float32)),
         "type": jnp.asarray(np.array([m.type for m in materials], np.int32)),
     }
-
-
-# Row indices of the fused-traversal material table (material_pack).
-MP_ALBEDO, MP_SPECULAR, MP_EMISSIVE = 0, 3, 6
-MP_ESTR, MP_REFL, MP_ROUGH, MP_TYPE, MP_IOR = 9, 10, 11, 12, 13
-MP_MAX_MATERIALS = 128
-
-
-def material_pack(mats: dict) -> jnp.ndarray:
-    """Pack a stacked material pytree (stack_materials) into a [16, 128]
-    table for the fused traversal megakernel: per-ray material fetch is one
-    one-hot MXU matmul table[16,128] @ sel[128,R] (K=128 = the MXU sweet
-    spot). Supports up to MP_MAX_MATERIALS materials (gated by
-    supports_fused_traverse)."""
-    m = int(mats["albedo"].shape[0])
-    if m > MP_MAX_MATERIALS:
-        raise ValueError(f"material_pack supports <= {MP_MAX_MATERIALS} materials, got {m}")
-    pack = jnp.zeros((16, MP_MAX_MATERIALS), jnp.float32)  # jnp: trace-safe
-    pack = pack.at[MP_ALBEDO : MP_ALBEDO + 3, :m].set(mats["albedo"].T)
-    pack = pack.at[MP_SPECULAR : MP_SPECULAR + 3, :m].set(mats["specular"].T)
-    pack = pack.at[MP_EMISSIVE : MP_EMISSIVE + 3, :m].set(mats["emissive"].T)
-    pack = pack.at[MP_ESTR, :m].set(mats["emissive_strength"])
-    pack = pack.at[MP_REFL, :m].set(mats["reflectivity"])
-    pack = pack.at[MP_ROUGH, :m].set(mats["roughness"])
-    pack = pack.at[MP_TYPE, :m].set(mats["type"].astype(jnp.float32))
-    pack = pack.at[MP_IOR, :m].set(mats["ior"])
-    return pack

@@ -1,6 +1,6 @@
 """Triangle mesh container + native importers (OBJ/MTL, PLY).
 
-TPU-native replacement for ``RtModel``'s Assimp import path
+JAX replacement for ``RtModel``'s Assimp import path
 (/root/reference/libs/DXRFramework/RtModel.cpp:24-82): meshes are flattened
 to position+normal arrays with smooth normals generated when absent
 (aiProcess_GenSmoothNormals equivalent) and a degenerate-load fallback

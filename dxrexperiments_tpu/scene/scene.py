@@ -1,20 +1,18 @@
 """Scene assembly: instances -> flattened device SoA + intersection precomputes.
 
-TPU-native replacement for ``RtScene``/``RtModel`` + BLAS/TLAS build
+JAX replacement for ``RtScene``/``RtModel`` + BLAS/TLAS build
 (/root/reference/libs/DXRFramework/RtScene.cpp:18-52, RtModel.cpp:86-118).
 Where D3D12 builds opaque driver acceleration structures, we lower the scene
 to explicit arrays:
 
-  * world-space triangle SoA (v0/e1/e2 + per-vertex normals) padded to a
-    lane-aligned triangle count,
-  * precomputed Plücker-form Möller–Trumbore terms so the intersector is a
-    chain of [R,3]x[3,T] contractions (MXU/VPU-friendly; see ops/intersect.py),
+  * world-space triangle SoA (v0/e1/e2 + per-vertex normals),
+  * precomputed Plücker-form Möller–Trumbore terms, which the brute-force
+    intersector (ops/intersect.py) and the BVH walk both test against,
   * a stacked material table and per-triangle material ids (replacing
     per-instance SBT hit records),
+  * above BVH_THRESHOLD triangles, a BVH in the walk's layout
+    (accel/traverse.py),
   * lights + environment.
-
-Padding triangles are fully degenerate (all zeros) which self-mask in the
-intersector (det == 0 -> miss), the SoA analogue of inactive SBT entries.
 """
 
 from __future__ import annotations
@@ -29,8 +27,6 @@ from .lights import default_lights
 from .materials import Material, stack_materials
 from .mesh import Mesh
 from . import envmap as envmap_mod
-
-TRI_ALIGN = 8  # pad triangle count to the sublane tile (triangles ride sublanes in the kernels)
 
 
 @dataclasses.dataclass
@@ -50,36 +46,16 @@ class Instance:
     material_override: int | None = None  # global material index for all faces
 
 
-BVH_THRESHOLD = 4096  # above this triangle count, build + attach a BVH
-BVH_LEAF_SIZE = 32  # fixed leaf size consumed by the traversal kernel (swept on v5e)
-
-# PRIME triangles: the few scene-dominating triangles (floors, walls) kept
-# as a world-space side table so incoherent bounce traces can pre-seed
-# their t_max against them (trace/integrator._prime_seed_tmax) — a tight
-# far clamp makes the packet kernels' slab unions collapse to the origin
-# cell instead of spanning the whole instance grid. Selection is a
-# heuristic (correctness never depends on which triangles are chosen, only
-# on their world-space coordinates being current — see refit).
-PRIME_MAX = 8
-PRIME_AREA_FRAC = 0.02  # keep triangles with area >= frac * max_extent^2
-
-
-def select_prime_triangles(v0, e1, e2) -> np.ndarray:
-    """Indices of up to PRIME_MAX triangles whose world area is at least
-    PRIME_AREA_FRAC x (scene max extent)^2 — typically floors/walls. Returns
-    an empty index array when nothing qualifies (e.g. triangle soups), which
-    callers treat as "no prime table" (zero overhead)."""
-    if len(v0) == 0:
-        return np.zeros((0,), np.int64)
-    area = 0.5 * np.linalg.norm(np.cross(e1, e2), axis=-1)
-    p1, p2 = v0 + e1, v0 + e2
-    lo = np.minimum(np.minimum(v0.min(0), p1.min(0)), p2.min(0))
-    hi = np.maximum(np.maximum(v0.max(0), p1.max(0)), p2.max(0))
-    ext = float(np.max(hi - lo))
-    if not np.isfinite(ext) or ext <= 0.0:
-        return np.zeros((0,), np.int64)
-    idx = np.argsort(-area, kind="stable")[:PRIME_MAX]
-    return idx[area[idx] >= PRIME_AREA_FRAC * ext * ext]
+# Above this triangle count a scene gets a BVH. On an H100 (700 W), one
+# 512x512 progressive sample of the instanced:K sphere grid took 38.6 / 73.8
+# ms brute force and 56.6 / 68.6 ms through the walk at 3,842 / 8,642
+# triangles (benchmarks/gpu_constants.py): brute force grows linearly, the
+# walk slowly, and the two lines cross near 7,600 triangles.
+BVH_THRESHOLD = 7500
+# Triangles per BVH leaf (the walk tests a whole leaf at once). Leaves of 4,
+# 8 and 16 gave 250, 286 and 311 ms per 512x512 sample of the 983k-triangle
+# instanced:32 scene on an H100 (700 W).
+BVH_LEAF_SIZE = 4
 
 
 class Scene:
@@ -199,28 +175,6 @@ class Scene:
             mid = iid = np.zeros((0,), np.int32)
 
         num_tris = len(v0)
-        # Pad to the sublane tile when a single kernel chunk covers the whole
-        # scene; above one chunk (512) the attribute blocks ride the lane
-        # dimension per chunk, which Mosaic requires to be 128-aligned — so
-        # pad to a full chunk multiple instead.
-        if num_tris <= 512:
-            padded = max(TRI_ALIGN, -(-num_tris // TRI_ALIGN) * TRI_ALIGN)
-        else:
-            padded = -(-num_tris // 512) * 512
-
-        def pad3(a):
-            out = np.zeros((padded, 3), np.float32)
-            out[: len(a)] = a
-            return out
-
-        def pad1(a, fill=0):
-            out = np.full((padded,), fill, a.dtype if len(a) else np.int32)
-            out[: len(a)] = a
-            return out
-
-        v0, e1, e2 = pad3(v0), pad3(e1), pad3(e2)
-        n0, n1, n2 = pad3(n0), pad3(n1), pad3(n2)
-        mid, iid = pad1(mid), pad1(iid)
 
         # Plücker / scalar-triple-product precomputes (see ops/intersect.py):
         #   det = -(D . pn)            pn = e1 x e2  (unnormalized face normal)
@@ -239,42 +193,8 @@ class Scene:
             else envmap_mod.constant_env((0.0, 0.0, 0.0))
         )
 
-        # ---- Pallas kernel packings (see ops/intersect_pallas.py) ---------
-        # Triangle-on-sublanes layout (rays ride the lane dimension in the
-        # kernels). mt_pack [4, T, 16]: coefficient rows per term group g so
-        # term[c, r] = sum_k mt_pack[g, c, k] * lhs_k[r], lhs = [D, M, O, 1].
-        mt_pack = np.zeros((4, padded, 16), np.float32)
-        mt_pack[0, :, 0:3] = -pn  # det  = -(D . pn)
-        mt_pack[1, :, 0:3] = c1  # u*det =  D . c1 + M . e2
-        mt_pack[1, :, 3:6] = e2
-        mt_pack[2, :, 0:3] = -c2  # v*det = -D . c2 - M . e1
-        mt_pack[2, :, 3:6] = -e1
-        mt_pack[3, :, 6:9] = pn  # t*det =  O . pn - d0
-        mt_pack[3, :, 9] = -d0
-
-        # attr_pack [32, T]: per-triangle hit attributes fetched via a
-        # one-hot matmul attr[32,C] @ sel[C,R] (MXU as gather engine):
-        # vertex normals, material id and the full material row so shading
-        # needs no gathers at all.
         mats = stack_materials(materials)
-        mat_np = {k: np.asarray(v) for k, v in mats.items()}
-        attr = np.zeros((32, padded), np.float32)
-        attr[0:3] = n0.T
-        attr[3:6] = n1.T
-        attr[6:9] = n2.T
-        attr[9] = mid.astype(np.float32)
-        attr[10:13] = mat_np["albedo"][mid].T
-        attr[13:16] = mat_np["specular"][mid].T
-        attr[16:19] = mat_np["emissive"][mid].T
-        attr[19] = mat_np["emissive_strength"][mid]
-        attr[20] = mat_np["reflectivity"][mid]
-        attr[21] = mat_np["roughness"][mid]
-        attr[22] = mat_np["ior"][mid]
-        attr[23] = mat_np["type"][mid].astype(np.float32)
-
         scene_dict = {
-            "mt_pack": jnp.asarray(mt_pack),
-            "attr_pack": jnp.asarray(attr),
             "v0": jnp.asarray(v0),
             "e1": jnp.asarray(e1),
             "e2": jnp.asarray(e2),
@@ -294,9 +214,7 @@ class Scene:
         }
 
         # Albedo textures (scene.textures): only attach the table + per-
-        # corner UVs when some material is textured — untextured scenes keep
-        # the round-2 pytree (and the fused megakernel gates key off the
-        # "textures" key's absence).
+        # corner UVs when some material is textured.
         from .textures import pack_texture_table
 
         textures = pack_texture_table(materials)
@@ -306,67 +224,23 @@ class Scene:
                 if uvcs
                 else np.zeros((0, 3, 2), np.float32)
             )
-            uv_pad = np.zeros((padded, 3, 2), np.float32)
-            uv_pad[: len(uvc)] = uvc
             scene_dict["textures"] = textures
-            scene_dict["uv0"] = jnp.asarray(uv_pad[:, 0])
-            scene_dict["uv1"] = jnp.asarray(uv_pad[:, 1])
-            scene_dict["uv2"] = jnp.asarray(uv_pad[:, 2])
+            scene_dict["uv0"] = jnp.asarray(uvc[:, 0])
+            scene_dict["uv1"] = jnp.asarray(uvc[:, 1])
+            scene_dict["uv2"] = jnp.asarray(uvc[:, 2])
 
         want_bvh = accel == "bvh" or (accel == "auto" and num_tris > BVH_THRESHOLD)
-        tex_autoroute = False
-        if accel == "auto" and not want_bvh and num_tris > 0:
-            # Texture-env (latlong/cubemap) and textured-albedo scenes:
-            # the brute megakernel can't resolve texture gathers in-kernel
-            # (fused_sample_pallas.supports_fused rejects them), so without
-            # a BVH these scenes fall to the 9-launch wavefront path. The
-            # fused-TRAVERSAL megakernel runs them DEFERRED (bounce dirs +
-            # weights out, miss-compacted XLA gathers outside) — attach a
-            # BVH so small scenes ride it (round 4; eligibility mirrors
-            # supports_fused_traverse's rig/material gates).
-            from .lights import light_counts
-            from ..ops.fused_traverse_pallas import MP_MAX_MATERIALS
-
-            d_n, p_n, a_n = light_counts(lights)
-            rig_ok = (
-                d_n <= 1 and p_n <= 1 and a_n <= 1 and d_n + p_n + a_n >= 1
-            )
-            deferred_texloads = (
-                int(env["kind"]) in (2, 3) or textures is not None
-            )
-            if (rig_ok and deferred_texloads
-                    and len(materials) <= MP_MAX_MATERIALS):
-                want_bvh = True
-                # The BVH below exists only for texture ROUTING, not size:
-                # tag it so fused_sample_pallas.supports_fused can keep
-                # brute-eligible tiny scenes on the (2-5x faster there)
-                # brute megakernel in BOTH pipelines (env-deferred);
-                # textured-ALBEDO scenes still ride the FT deferred path
-                # through this BVH.
-                tex_autoroute = True
-        # World-space PRIME table for bounce-trace t_max seeding (only
-        # meaningful when a packet-traversal accel is attached below; the
-        # brute megakernel paths ignore it).
-        pidx = select_prime_triangles(v0, e1, e2)
-        if len(pidx) and (want_bvh or accel == "bvh"):
-            scene_dict["prime_v0"] = jnp.asarray(v0[pidx])
-            scene_dict["prime_e1"] = jnp.asarray(e1[pidx])
-            scene_dict["prime_e2"] = jnp.asarray(e2[pidx])
-
         if want_bvh and num_tris > 0:
             from ..accel import bvh as bvh_mod
-            from ..ops.traverse_pallas import pack_for_traversal
+            from ..accel.traverse import pack_bvh
 
             nodes = bvh_mod.build_bvh_sah(v0, e1, e2, num_tris, BVH_LEAF_SIZE)
             if nodes is None:  # no native toolchain -> Morton build
                 nodes = bvh_mod.to_node_arrays(
                     bvh_mod.build_bvh(v0, e1, e2, num_tris, BVH_LEAF_SIZE)
                 )
-            packed = pack_for_traversal(nodes, scene_dict, BVH_LEAF_SIZE)
-            packed.pop("leaf_size")  # fixed BVH_LEAF_SIZE; pytree stays arrays
-            if tex_autoroute:
-                packed["tex_autoroute"] = jnp.asarray(1, jnp.int32)
-            scene_dict["bvh"] = packed
+            packed, _ = pack_bvh(nodes, v0, e1, e2, BVH_LEAF_SIZE)
+            scene_dict["bvh"] = {k: jnp.asarray(v) for k, v in packed.items()}
 
         return scene_dict
 
@@ -497,47 +371,6 @@ class Scene:
             "env": env,
             "num_tris": jnp.asarray(num_tris, jnp.int32),
         }
-        # World-space PRIME table (bounce-trace t_max seeding). Candidates =
-        # each mesh's top-PRIME_MAX object-space-area triangles, expanded
-        # through every instance transform (exact areas for the candidates
-        # only — no full world flatten); selection then runs on the world
-        # candidates. The object-space sources + owning instance ids ride
-        # tlas_meta so refit_scene_instances can re-derive current world
-        # coordinates under animation.
-        cand_obj, cand_inst = [], []
-        for mi, (gv0, ge1, ge2) in enumerate(meshes_geo):
-            top = select_prime_triangles(gv0, ge1, ge2)
-            top = (
-                np.argsort(
-                    -0.5 * np.linalg.norm(np.cross(ge1, ge2), axis=-1),
-                    kind="stable",
-                )[:PRIME_MAX]
-                if len(top) == 0 else top
-            )
-            for ii in np.nonzero(inst_mesh == mi)[0]:
-                cand_obj.append((gv0[top], ge1[top], ge2[top]))
-                cand_inst.append(np.full((len(top),), ii, np.int64))
-        cv0 = np.concatenate([c[0] for c in cand_obj])
-        ce1 = np.concatenate([c[1] for c in cand_obj])
-        ce2 = np.concatenate([c[2] for c in cand_obj])
-        cinst = np.concatenate(cand_inst)
-        rot = transforms[cinst, :3, :3]
-        trn = transforms[cinst, :3, 3]
-        wv0 = np.einsum("nij,nj->ni", rot, cv0) + trn
-        we1 = np.einsum("nij,nj->ni", rot, ce1)
-        we2 = np.einsum("nij,nj->ni", rot, ce2)
-        pidx = select_prime_triangles(wv0, we1, we2)
-        if len(pidx):
-            out["prime_v0"] = jnp.asarray(wv0[pidx].astype(np.float32))
-            out["prime_e1"] = jnp.asarray(we1[pidx].astype(np.float32))
-            out["prime_e2"] = jnp.asarray(we2[pidx].astype(np.float32))
-            out["tlas_meta"].value["prime_src"] = {
-                "v0": cv0[pidx].astype(np.float32),
-                "e1": ce1[pidx].astype(np.float32),
-                "e2": ce2[pidx].astype(np.float32),
-                "inst": cinst[pidx].astype(np.int32),
-            }
-
         from .textures import pack_texture_table
 
         textures = pack_texture_table(materials)
@@ -556,30 +389,11 @@ def rebake_material(scene: dict, index: int, material: Material) -> dict:
     The live material-editing path (parity with the reference's imgui
     material sliders + frameDirty accumulation restart,
     /root/reference/src/ProgressiveRaytracingPipeline.cpp:253-267,309-311):
-    updates the stacked material table AND re-derives the fused attr_pack
-    rows (and the traversal attr_sorted mirror when present) from the
-    unchanged per-triangle mat_id. Pipelines whose compiled steps bake
-    geometry as constants recompile on the new identity — the analogue of
-    the SBT rewrite the reference performs each frame.
+    updates the stacked material table; per-triangle material ids are
+    unchanged. Pipelines whose compiled steps bake geometry as constants
+    recompile on the new identity — the analogue of the SBT rewrite the
+    reference performs each frame.
     """
     m = stack_materials([material])
     mats = {k: scene["materials"][k].at[index].set(m[k][0]) for k in m}
-    mid = scene["mat_id"]
-    attr = scene["attr_pack"]
-    attr = attr.at[10:13].set(mats["albedo"][mid].T)
-    attr = attr.at[13:16].set(mats["specular"][mid].T)
-    attr = attr.at[16:19].set(mats["emissive"][mid].T)
-    attr = attr.at[19].set(mats["emissive_strength"][mid])
-    attr = attr.at[20].set(mats["reflectivity"][mid])
-    attr = attr.at[21].set(mats["roughness"][mid])
-    attr = attr.at[22].set(mats["ior"][mid])
-    attr = attr.at[23].set(mats["type"][mid].astype(jnp.float32))
-    out = dict(scene, materials=mats, attr_pack=attr)
-    if "bvh" in scene and "attr_sorted" in scene["bvh"]:
-        slot = scene["bvh"]["slot_tri"]
-        src = jnp.maximum(slot, 0)
-        out["bvh"] = dict(
-            scene["bvh"],
-            attr_sorted=jnp.where(slot[None, :] >= 0, attr[:, src], 0.0),
-        )
-    return out
+    return dict(scene, materials=mats)

@@ -8,7 +8,7 @@ texture units are the environment maps
 the environment machinery's quad-packed layout (scene/envmap.py
 _quad_pack_latlong): every texel row carries its full 2x2 bilinear
 footprint with WRAP addressing baked in, so a bilinear albedo sample is
-ONE XLA gather per hit (~25 ns/row on v5e, sub-linear in row width).
+ONE XLA gather per hit.
 
 All materials' textures live in one concatenated row table; a per-material
 meta row (base, W, H) turns (mid, uv) into a row index, so scenes mixing
@@ -40,8 +40,7 @@ def pack_texture_table(materials: list) -> dict | None:
     """Pack every material's `albedo_texture` into one device table.
 
     Returns None when no material is textured (scenes then omit the
-    "textures" key entirely — zero cost, and the fused-kernel gates key
-    off its absence). Otherwise:
+    "textures" key entirely). Otherwise:
       rows  [R, 12] float32  — concatenated quad-packed texels
       meta  [M, 3]  int32    — (base_row, width, height); (0,0,0) = none
     """

@@ -1,6 +1,6 @@
 """Frame statistics: fps + MRays/s telemetry.
 
-TPU-native replacement for DXSample::CalculateFrameStats
+JAX replacement for DXSample::CalculateFrameStats
 (/root/reference/src/utils/DXSample.cpp:100-123): fps and million primary
 rays per second (w*h*fps/1e6), recomputed once per second.
 """

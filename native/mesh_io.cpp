@@ -1,6 +1,6 @@
 // Native asset ingest: fast OBJ parsing.
 //
-// TPU-native replacement for the reference's Assimp import path
+// Native (C++) replacement for the reference's Assimp import path
 // (/root/reference/libs/DXRFramework/RtModel.cpp:24-82). The Python OBJ
 // parser in scene/mesh.py is the reference implementation; this one is the
 // production fast path for multi-million-triangle assets (mmap-free simple

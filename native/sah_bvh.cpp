@@ -1,11 +1,11 @@
 // Binned SAH/SBVH BVH builder (host, C++).
 //
-// TPU-native replacement for the driver-side BLAS build the reference gets
+// Native (C++) replacement for the driver-side BLAS build the reference gets
 // from D3D12 (/root/reference/libs/DXRFramework/Helpers/BottomLevelASGenerator.cpp):
 // static scenes get a maximum-quality surface-area-heuristic tree built once
 // on the host; dynamic geometry uses the device-side Morton builder
 // (dxrexperiments_tpu/accel/bvh.py). Both emit the same explicit node-array
-// format consumed by the traversal kernels:
+// format that accel/traverse.pack_bvh lays out for the walk:
 //
 //   nodes_lo/hi [M, 3] f32, child [M, 2] i32:
 //     internal: child[m] = {left_node, right_node}
@@ -13,7 +13,7 @@
 //   order [R] i32: triangle REFERENCES, leaves own contiguous runs. With
 //     spatial splits a triangle may be referenced by several leaves
 //     (R >= T); every consumer resolves slots through this table
-//     (pack_for_traversal's slot_tri), so duplicates are transparent.
+//     (pack_bvh's slot triangle ids), so duplicates are transparent.
 //
 // 16-bin object SAH with leaf cutoff, nodes in DFS order (left child
 // immediately follows its parent). When the two object-split children

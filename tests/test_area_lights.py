@@ -48,7 +48,7 @@ def _render_direct(scene, w=64, h=64):
     opts = default_options(show_direct_lighting_only=True)
     return np.asarray(
         render_sample(
-            scene, opts, cp, w, h, mode="progressive", impl="jnp",
+            scene, opts, cp, w, h, mode="progressive",
             env_kind=int(scene["env"]["kind"]),
         )["color"]
     ).mean(-1)

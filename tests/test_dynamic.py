@@ -42,15 +42,12 @@ def test_bake_matches_host_build():
     base = prepare_base(
         {**base_scene, "num_tris": base_scene["num_tris"]}, 4
     )
-    # base mesh padded to 8 -> slice to the real 12 tris... box=12 tris, the
-    # host build pads to 16; use the padded arrays directly (degenerate
-    # padding tris stay degenerate under transforms).
     dev = bake_instances(base, jnp.asarray(tfs))
 
-    nb = base_scene["v0"].shape[0]  # padded base size
+    nb = base_scene["v0"].shape[0]  # base mesh triangles (a box: 12)
     n_host = int(host["num_tris"])
-    # Compare per-instance blocks: device layout is [I * nb], host layout is
-    # [I * 12] (unpadded concat). Collect real triangles from the device bake.
+    # Compare per-instance blocks: both layouts are [I * nb] in instance
+    # order.
     dv0 = np.asarray(dev["v0"]).reshape(4, nb, 3)[:, :12].reshape(-1, 3)
     np.testing.assert_allclose(dv0, np.asarray(host["v0"][:n_host]), atol=1e-4)
     dn0 = np.asarray(dev["n0"]).reshape(4, nb, 3)[:, :12].reshape(-1, 3)
@@ -66,7 +63,7 @@ def test_baked_scene_renders_and_animates():
     mesh = fallback_triangle()
     mats = [Material(albedo=(0.9, 0.1, 0.1, 1))]
     base_scene = host_build(mesh, np.eye(4)[None], mats)
-    base = prepare_base(base_scene, 8)  # 8 instances x 8 padded tris = 64 ✓
+    base = prepare_base(base_scene, 8)  # 8 instances of the triangle
 
     cam = Camera()
     cam.set_eye_at_up((10.0, 1.0, 14.0), (10.0, 0.0, 0.0), (0, 1, 0))
@@ -80,8 +77,7 @@ def test_baked_scene_renders_and_animates():
         tfs = jnp.asarray(transforms_grid(8, yaw0=yaw))
         scene = bake_instances(base, tfs, lights=lights, env=env)
         out = render_sample(
-            scene, options, camera_params(cam), 48, 48, impl="jnp"
-        )
+            scene, options, camera_params(cam), 48, 48)
         imgs.append(np.asarray(out["color"]))
     assert all(np.isfinite(i).all() for i in imgs)
     assert imgs[0].max() > 0.01  # instances visible

@@ -1,11 +1,11 @@
 """Frames-in-flight batching: K realtime frames in ONE dispatch.
 
-TPU-native analogue of the reference's 3-deep frame ring
+The analogue of the reference's 3-deep frame ring
 (/root/reference/include/DXRExperimentsApp.h:27,
-src/utils/DeviceResources.cpp:580-598): per-frame cameras ride the fused
-megakernel's sample-grid axis (each frame writes its own AOV block), or a
-lax.map wraps the single-frame renderer for the generic paths. Batched
-output must match K sequential single-frame renders (fp-fusion tolerance).
+src/utils/DeviceResources.cpp:580-598): a lax.map over per-frame cameras
+wraps the single-frame wavefront renderer. Batched output must match K
+sequential single-frame renders (fp-fusion tolerance), on the brute-force
+and on the BVH route.
 """
 
 import jax
@@ -24,8 +24,6 @@ from dxrexperiments_tpu.models.realtime import (
     RealtimeRaytracingPipeline,
     make_realtime_denoise_frames_step,
 )
-from dxrexperiments_tpu.ops import fused_sample_pallas as fsp
-from dxrexperiments_tpu.ops import fused_traverse_pallas as ftp
 from dxrexperiments_tpu.trace.integrator import (
     default_options,
     make_render_step,
@@ -36,10 +34,10 @@ W = H = 32
 AOV_KEYS = ("color", "direct", "indirect_specular", "albedo", "roughness")
 
 
-def glossy_scene():
+def glossy_scene(accel="auto"):
     sc, cam = build_scene("cornell-glossy")
     cam.set_aspect(W, H)
-    return sc.build(), cam
+    return sc.build(accel=accel), cam
 
 
 def cams_k(cam, k):
@@ -50,39 +48,16 @@ def cams_k(cam, k):
     return cams, jax.tree.map(lambda *xs: jnp.stack(xs), *cams)
 
 
-def test_fused_realtime_batch_matches_single():
-    """S-axis batched fused realtime == S sequential single-frame launches."""
-    scene, cam = glossy_scene()
+@pytest.mark.parametrize("accel", ["none", "bvh"])
+def test_render_step_frames_match_single(accel):
+    """make_render_step(frames_per_step=K) returns stacked AOVs matching
+    the single-frame step, on the brute-force and the BVH route."""
+    scene, cam = glossy_scene(accel)
     opts = default_options()
     cams, stack = cams_k(cam, 3)
-    ek = int(scene["env"]["kind"])
-    batch = fsp.fused_realtime_outputs_batch(
-        scene, opts, stack, W, H, ek, interpret=True
-    )
-    for i, c in enumerate(cams):
-        single = fsp.fused_realtime_outputs(
-            scene, opts, c, W, H, ek, interpret=True
-        )
-        for k in AOV_KEYS:
-            np.testing.assert_allclose(
-                np.asarray(single[k]), np.asarray(batch[k])[i],
-                atol=1e-6, err_msg=f"{k}/frame{i}",
-            )
-
-
-def test_render_step_frames_fused():
-    """make_render_step(frames_per_step=K) on a fused-eligible scene returns
-    stacked AOVs matching the single-frame step."""
-    scene, cam = glossy_scene()
-    opts = default_options()
-    cams, stack = cams_k(cam, 3)
-    step1 = make_render_step(
-        scene, W, H, mode="realtime", jitter_scale=10.0,
-        impl="pallas_interpret",
-    )
+    step1 = make_render_step(scene, W, H, mode="realtime", jitter_scale=10.0)
     stepk = make_render_step(
-        scene, W, H, mode="realtime", jitter_scale=10.0,
-        impl="pallas_interpret", frames_per_step=3,
+        scene, W, H, mode="realtime", jitter_scale=10.0, frames_per_step=3,
     )
     out = stepk(opts, stack, scene["lights"], scene["env"])
     for i, c in enumerate(cams):
@@ -100,14 +75,12 @@ def test_render_step_frames_wavefront():
     opts = default_options()
     cams, stack = cams_k(cam, 2)
     stepk = make_render_step(
-        scene, W, H, mode="realtime", jitter_scale=10.0, impl="jnp",
-        frames_per_step=2,
+        scene, W, H, mode="realtime", jitter_scale=10.0, frames_per_step=2,
     )
     out = stepk(opts, stack, scene["lights"], scene["env"])
     for i, c in enumerate(cams):
         ref = render_sample(
             scene, opts, c, W, H, mode="realtime", jitter_scale=10.0,
-            impl="jnp",
         )
         np.testing.assert_allclose(
             np.asarray(ref["direct"]), np.asarray(out["direct"])[i],
@@ -115,30 +88,29 @@ def test_render_step_frames_wavefront():
         )
 
 
-def test_render_step_frames_fused_traverse():
-    """BVH scenes route the frame batch through lax.map of the fused
-    traversal realtime kernel."""
-    sc, cam = build_scene("cornell-glossy")
-    cam.set_aspect(W, H)
-    scene = sc.build(accel="bvh")
-    assert ftp.supports_fused_traverse(scene, "realtime", False)
+def test_render_step_frames_bvh_vs_brute():
+    """The frame batch on the BVH route reproduces per-frame render_sample
+    on the brute-force route."""
+    scene, cam = glossy_scene("bvh")
+    brute, _ = glossy_scene("none")
     opts = default_options()
-    cams, stack = cams_k(cam, 2)
+    # frames 1 and 2: frame 0's unjittered rays run exactly along the box's
+    # corner seams, where either route may report either wall
+    cams, stack = cams_k(cam, 3)
+    cams, stack = cams[1:], jax.tree.map(lambda x: x[1:], stack)
     stepk = make_render_step(
-        scene, W, H, mode="realtime", jitter_scale=10.0,
-        impl="pallas_interpret", frames_per_step=2,
+        scene, W, H, mode="realtime", jitter_scale=10.0, frames_per_step=2,
     )
     out = stepk(opts, stack, scene["lights"], scene["env"])
-    ek = int(scene["env"]["kind"])
     for i, c in enumerate(cams):
-        ref = ftp.fused_traverse_realtime_outputs(
-            scene, opts, c, W, H, ek, interpret=True
+        ref = render_sample(
+            brute, opts, c, W, H, mode="realtime", jitter_scale=10.0,
         )
         for k in AOV_KEYS:
-            np.testing.assert_allclose(
-                np.asarray(ref[k]), np.asarray(out[k])[i],
-                atol=1e-6, err_msg=f"{k}/frame{i}",
-            )
+            diff = np.abs(np.asarray(ref[k]) - np.asarray(out[k])[i])
+            bad = diff.reshape(H * W, -1).max(axis=-1) > 1e-3
+            assert bad.mean() <= 0.005, f"{k}/frame{i}"
+            assert float(np.median(diff)) < 1e-5, f"{k}/frame{i}"
 
 
 def test_frames_per_step_rejects_progressive():
@@ -181,9 +153,9 @@ def test_denoise_composite_frames():
     d = jnp.asarray(rng.random((2, 16, 24, 3), np.float32))
     s = jnp.asarray(rng.random((2, 16, 24, 3), np.float32))
     params = default_denoise_params()
-    out = denoise_composite_frames(d, s, params, impl="jnp")
+    out = denoise_composite_frames(d, s, params)
     for i in range(2):
-        ref = denoise_composite(d[i], s[i], params, impl="jnp")
+        ref = denoise_composite(d[i], s[i], params)
         np.testing.assert_allclose(
             np.asarray(ref), np.asarray(out)[i], atol=1e-6
         )
@@ -223,14 +195,12 @@ def test_realtime_denoise_frames_step():
     opts = default_options()
     _, stack = cams_k(cam, 2)
     den = default_denoise_params()
-    comb = make_realtime_denoise_frames_step(
-        scene, W, H, 2, impl="pallas_interpret", denoise_impl="jnp"
-    )
+    comb = make_realtime_denoise_frames_step(scene, W, H, 2)
     aovs, img = comb(opts, stack, scene["lights"], scene["env"], den)
     assert np.asarray(img).shape == (2, H, W, 3)
     for i in range(2):
         ref = denoise_composite(
-            aovs["direct"][i], aovs["indirect_specular"][i], den, impl="jnp"
+            aovs["direct"][i], aovs["indirect_specular"][i], den
         )
         np.testing.assert_allclose(
             np.asarray(ref), np.asarray(img)[i], atol=1e-6

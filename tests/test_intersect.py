@@ -139,11 +139,152 @@ def test_any_hit_occlusion():
 
 
 def test_padding_triangles_never_hit():
-    data = single_triangle_scene([0, 0, 0], [1, 0, 0], [0, 1, 0])
-    assert data["v0"].shape[0] == 8  # padded to sublane alignment
-    # Rays that miss the real triangle but would hit "zero" triangles if they
-    # weren't masked.
-    o = jnp.asarray([[5.0, 5.0, 1.0]], jnp.float32)
+    """Triangle counts that are not a whole number of chunks are padded with
+    all-zero triangles inside the intersector; those must never hit."""
+    sc = Scene()
+    for x in (3.0, 4.0, 5.0):
+        pos = np.array([[x, 0, 0], [x + 0.5, 0, 0], [x, 0.5, 0]], np.float32)
+        sc.add_model(Mesh(pos, None, np.array([[0, 1, 2]], np.int32)))
+    data = sc.build()
+    assert data["v0"].shape[0] == 3  # the scene itself is not padded
+    # A ray through the origin, where the zero padding triangle sits.
+    o = jnp.asarray([[0.0, 0.0, 1.0]], jnp.float32)
     d = jnp.asarray([[0.0, 0.0, -1.0]], jnp.float32)
-    assert not bool(intersect.intersect_closest(data, o, d)["hit"][0])
-    assert not bool(intersect.intersect_any(data, o, d)[0])
+    assert not bool(intersect.intersect_closest(data, o, d, chunk=2)["hit"][0])
+    assert not bool(intersect.intersect_any(data, o, d, chunk=2)[0])
+
+
+# --------------------------------------------------------------------------- #
+# Many rays against a vectorised NumPy oracle (float64 Möller–Trumbore).
+# --------------------------------------------------------------------------- #
+def oracle(data, o, d, t_min=1e-4, t_max=np.inf, cull=False):
+    """Closest hit per ray: (t, tri, u, v) arrays, tri = -1 on a miss."""
+    v0, e1, e2 = (np.asarray(data[k], np.float64) for k in ("v0", "e1", "e2"))
+    o = np.asarray(o, np.float64)[:, None]
+    d = np.asarray(d, np.float64)[:, None]
+    p = np.cross(d, e2[None])
+    det = np.sum(e1[None] * p, -1)
+    ok = det > 1e-12 if cull else np.abs(det) > 1e-12
+    inv = np.where(ok, 1.0 / np.where(ok, det, 1.0), 0.0)
+    tv = o - v0[None]
+    u = np.sum(tv * p, -1) * inv
+    q = np.cross(tv, e1[None])
+    v = np.sum(d * q, -1) * inv
+    t = np.sum(e2[None] * q, -1) * inv
+    t_max = np.broadcast_to(np.asarray(t_max, np.float64), (o.shape[0],))
+    hit = (ok & (u >= 0) & (v >= 0) & (u + v <= 1) & (t > t_min)
+           & (t < t_max[:, None]))
+    tt = np.where(hit, t, np.inf)
+    tri = np.argmin(tt, -1)
+    rows = np.arange(len(tri))
+    found = np.isfinite(tt[rows, tri])
+    return (np.where(found, tt[rows, tri], -1.0), np.where(found, tri, -1),
+            u[rows, tri], v[rows, tri])
+
+
+def cornell_scene():
+    mesh, materials = cornell_box(glossy_tall_box=True)
+    sc = Scene()
+    for m in materials:
+        sc.add_material(m)
+    sc.add_model(mesh)
+    return sc.build()
+
+
+def random_rays(n, seed=0, inside=True):
+    rs = np.random.default_rng(seed)
+    o = rs.uniform(-0.9, 0.9, size=(n, 3)).astype(np.float32)
+    if inside:
+        o[:, 1] = rs.uniform(0.1, 1.9, size=n)
+    d = rs.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return jnp.asarray(o), jnp.asarray(d)
+
+
+def assert_matches_oracle(data, got, o, d, **kw):
+    """Same hits at the same t; the same triangle except on exact ties (a
+    ray through an edge two triangles share may report either)."""
+    t, tri, u, v = oracle(data, o, d, **kw)
+    hit = tri >= 0
+    np.testing.assert_array_equal(np.asarray(got["hit"]), hit)
+    np.testing.assert_allclose(np.asarray(got["t"])[hit], t[hit], rtol=2e-4,
+                               atol=2e-5)
+    same = hit & (np.asarray(got["tri"]) == tri)
+    assert same.sum() >= 0.98 * hit.sum(), (same.sum(), hit.sum())
+    np.testing.assert_allclose(np.asarray(got["u"])[same], u[same], atol=2e-4)
+    np.testing.assert_allclose(np.asarray(got["v"])[same], v[same], atol=2e-4)
+
+
+def test_closest_matches_oracle():
+    data = cornell_scene()
+    o, d = random_rays(300)
+    got = intersect.intersect_closest(data, o, d, t_min=1e-4)
+    assert_matches_oracle(data, got, o, d)
+
+
+def test_closest_attributes_match_interpolation():
+    """Hit attributes (position, normal, material) from the intersector's
+    record match barycentric interpolation done in NumPy."""
+    from dxrexperiments_tpu.trace.integrator import _interpolate_hit
+
+    data = cornell_scene()
+    o, d = random_rays(300, seed=3)
+    rec = intersect.intersect_closest(data, o, d, t_min=1e-4)
+    pos, nrm, mat = _interpolate_hit(data, rec, o, d)
+    t, tri, u, v = oracle(data, o, d)
+    hit = tri >= 0
+    w = 1.0 - u - v
+    n = (w[:, None] * np.asarray(data["n0"])[tri]
+         + u[:, None] * np.asarray(data["n1"])[tri]
+         + v[:, None] * np.asarray(data["n2"])[tri])
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    np.testing.assert_allclose(np.asarray(nrm)[hit], n[hit], atol=1e-3)
+    p = np.asarray(o) + t[:, None] * np.asarray(d)
+    np.testing.assert_allclose(np.asarray(pos)[hit], p[hit], atol=1e-3)
+    mid = np.asarray(data["mat_id"])[tri]
+    np.testing.assert_allclose(
+        np.asarray(mat["albedo"])[hit],
+        np.asarray(data["materials"]["albedo"])[mid][hit], atol=1e-6)
+    np.testing.assert_array_equal(
+        np.asarray(mat["type"])[hit],
+        np.asarray(data["materials"]["type"])[mid][hit])
+
+
+def test_closest_backface_culling_matches_oracle():
+    data = cornell_scene()
+    o, d = random_rays(200, seed=5)
+    got = intersect.intersect_closest(data, o, d, t_min=1e-4,
+                                      cull_backface=True)
+    assert_matches_oracle(data, got, o, d, cull=True)
+
+
+def test_any_matches_oracle():
+    data = cornell_scene()
+    o, d = random_rays(300, seed=9)
+    tmax = np.random.default_rng(1).uniform(0.1, 5.0, size=300).astype(
+        np.float32)
+    got = intersect.intersect_any(data, o, d, t_min=1e-4,
+                                  t_max=jnp.asarray(tmax))
+    _, tri, _, _ = oracle(data, o, d, t_max=tmax)
+    np.testing.assert_array_equal(np.asarray(got), tri >= 0)
+
+
+def test_ray_count_not_chunk_aligned():
+    data = cornell_scene()
+    o, d = random_rays(77, seed=11)
+    got = intersect.intersect_closest(data, o, d, t_min=1e-4)
+    assert got["hit"].shape == (77,)
+    assert_matches_oracle(data, got, o, d)
+
+
+def test_multi_chunk_scene():
+    """960 triangles: one full 512-triangle chunk and one padded chunk."""
+    from dxrexperiments_tpu.scene.procedural import sphere_mesh
+
+    sc = Scene()
+    sc.add_model(sphere_mesh((0, 0, 0), 1.0, lat=16, lon=32))
+    data = sc.build(accel="none")
+    assert data["v0"].shape[0] == 960
+    o, d = random_rays(200, seed=13, inside=False)
+    got = intersect.intersect_closest(data, o, d, t_min=1e-4)
+    assert_matches_oracle(data, got, o, d)

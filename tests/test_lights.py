@@ -43,7 +43,7 @@ def _render(scene, w=48, h=48):
     opts = default_options(no_indirect_diffuse=True)
     return np.asarray(
         render_sample(
-            scene, opts, cp, w, h, mode="progressive", impl="jnp",
+            scene, opts, cp, w, h, mode="progressive",
             env_kind=int(scene["env"]["kind"]),
         )["color"]
     )
@@ -115,7 +115,7 @@ def test_zero_lights():
     opts = default_options(show_direct_lighting_only=True)
     direct = np.asarray(
         render_sample(
-            scene, opts, cp, 48, 48, mode="progressive", impl="jnp",
+            scene, opts, cp, 48, 48, mode="progressive",
             env_kind=int(scene["env"]["kind"]),
         )["color"]
     )

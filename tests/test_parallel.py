@@ -25,9 +25,6 @@ def needs_devices(n):
 
 
 def setup(width, height, n_samples):
-    import sys
-
-    sys.path.insert(0, "/root/repo")
     from __graft_entry__ import _cornell_setup
 
     return _cornell_setup(width, height, n_samples)
@@ -84,18 +81,12 @@ def test_progressive_step_sharded_accumulates():
 
 @needs_devices(8)
 def test_graft_dryrun_multichip():
-    import sys
-
-    sys.path.insert(0, "/root/repo")
     from __graft_entry__ import dryrun_multichip
 
     dryrun_multichip(8)
 
 
 def test_graft_entry_compiles():
-    import sys
-
-    sys.path.insert(0, "/root/repo")
     from __graft_entry__ import entry
 
     fn, args = entry()
@@ -107,10 +98,10 @@ def test_graft_entry_compiles():
 
 @needs_devices(8)
 def test_sharded_fused_progressive_matches_single_chip():
-    """The shard_map progressive step routed through the FUSED megakernel
-    (rows over "tile" via py0/full_height, samples over "spp", one psum)
-    must reproduce the single-chip fused step bit-for-bit — global NDC and
-    global TEA pixel seeds are what make row shards equivalent."""
+    """The shard_map progressive step (wavefront rows over "tile" via
+    row0/full_height, samples over "spp", one psum) must reproduce the
+    single-device production step — global NDC and global TEA pixel seeds
+    are what make row shards equivalent."""
     from dxrexperiments_tpu.models.progressive import make_progressive_step
 
     width = height = 32
@@ -118,9 +109,7 @@ def test_sharded_fused_progressive_matches_single_chip():
     cameras = stack_cameras(cams)
     maxit = jnp.asarray(64, jnp.int32)
 
-    step1 = make_progressive_step(
-        scene, width, height, samples_per_step=2, impl="pallas_interpret"
-    )
+    step1 = make_progressive_step(scene, width, height, samples_per_step=2)
     want = np.asarray(
         step1(accum, options, cameras, scene["lights"], scene["env"], maxit)
     )
@@ -128,7 +117,6 @@ def test_sharded_fused_progressive_matches_single_chip():
     mesh = make_render_mesh(n_tile=4, n_spp=2)
     step = make_sharded_progressive_step(
         scene, width, height, mesh, samples_per_step=2,
-        impl="pallas_interpret",
     )
     accum_s = jax.device_put(
         jnp.zeros((height, width, 3), jnp.float32),
@@ -158,11 +146,10 @@ def test_sharded_realtime_denoise_matches_single_chip():
 
     ref = render_sample(
         scene, options, cam, width, height, mode="realtime",
-        jitter_scale=10.0, impl="jnp", env_kind=int(scene["env"]["kind"]),
+        jitter_scale=10.0, env_kind=int(scene["env"]["kind"]),
     )
     want = np.asarray(
-        denoise_composite(ref["direct"], ref["indirect_specular"], dp,
-                          impl="jnp")
+        denoise_composite(ref["direct"], ref["indirect_specular"], dp)
     )
 
     for n_tile in (2, 8):  # 32 rows/shard (halo) and 8 rows (all_gather)
@@ -170,7 +157,7 @@ def test_sharded_realtime_denoise_matches_single_chip():
             n_tile=n_tile, n_spp=1, devices=jax.devices()[:n_tile]
         )
         step = make_sharded_realtime_step(
-            scene, width, height, mesh, impl="jnp", denoise=True
+            scene, width, height, mesh, denoise=True
         )
         outs = step(options, cam, scene["lights"], scene["env"], dp)
         np.testing.assert_allclose(
@@ -234,18 +221,19 @@ def test_sharded_two_level_matches_single_chip():
 
 @needs_devices(2)
 def test_sharded_realtime_env_deferred_matches_single_chip():
-    """Row-sharded realtime via the fused-traverse kernel in env-DEFERRED
-    mode (texture env): each shard resolves its own env gathers with
-    per-shard primary dirs (row0 offset) — must match the single-chip
-    fused path exactly."""
+    """Row-sharded realtime on the BVH route under a texture environment:
+    each shard looks up its own rows' environment texels (row0 offset) and
+    must match the single-device render."""
     from dxrexperiments_tpu.core.camera import Camera, camera_params
-    from dxrexperiments_tpu.ops import fused_traverse_pallas as ftp
     from dxrexperiments_tpu.scene import Scene, cornell_box, envmap
     from dxrexperiments_tpu.scene.lights import (
         directional_light,
         point_light,
     )
-    from dxrexperiments_tpu.trace.integrator import default_options
+    from dxrexperiments_tpu.trace.integrator import (
+        default_options,
+        render_sample,
+    )
 
     width, height = 32, 64
     mesh0, materials = cornell_box(glossy_tall_box=True)
@@ -262,20 +250,19 @@ def test_sharded_realtime_env_deferred_matches_single_chip():
         rs.uniform(0, 2, (6, 8, 8, 3)).astype(np.float32), strength=1.3
     )
     scene = sc.build(accel="bvh")
-    assert ftp.supports_fused_traverse(scene, "realtime", False)
     options = default_options()
     cam = Camera()
     cam.set_eye_at_up((0.0, 1.0, 3.4), (0.0, 1.0, 0.0), (0.0, 1.0, 0.0))
     cam.set_aspect(width, height)
     camp = camera_params(cam, jitter=(0.003, -0.002), frame_count=5)
 
-    ref = ftp.fused_traverse_realtime_outputs(
-        scene, options, camp, width, height, int(scene["env"]["kind"]),
-        interpret=True,
+    ref = render_sample(
+        scene, options, camp, width, height, mode="realtime",
+        jitter_scale=10.0, env_kind=int(scene["env"]["kind"]),
     )
     mesh = make_render_mesh(n_tile=2, n_spp=1, devices=jax.devices()[:2])
     step = make_sharded_realtime_step(
-        scene, width, height, mesh, impl="pallas_interpret", denoise=False
+        scene, width, height, mesh, denoise=False
     )
     from dxrexperiments_tpu.models.denoise import default_denoise_params
 

@@ -194,7 +194,7 @@ def _render_albedo(scene, n=32):
     opts = default_options(show_gbuffer_albedo_only=True)
     return np.asarray(
         render_sample(
-            scene, opts, cp, n, n, mode="progressive", impl="jnp",
+            scene, opts, cp, n, n, mode="progressive",
             env_kind=int(scene["env"]["kind"]),
         )["color"]
     )
@@ -214,15 +214,25 @@ def test_two_level_textured_matches_flattened():
 
 
 def test_textured_scene_takes_wavefront_path():
-    from dxrexperiments_tpu.ops.fused_sample_pallas import supports_fused
-    from dxrexperiments_tpu.ops.fused_traverse_pallas import (
-        supports_fused_traverse,
-    )
-
+    """Textured scenes run the one wavefront route whatever their
+    acceleration structure: the BVH walk and brute force see the same
+    texels."""
     scene = _textured_quad_scene()
-    assert "textures" in scene
-    assert not supports_fused(scene, "progressive", False)
-    assert not supports_fused_traverse(scene, "progressive", False)
+    assert "textures" in scene and "bvh" not in scene
+    sc_bvh = dict(scene)
+    from dxrexperiments_tpu.accel.traverse import pack_bvh
+    from dxrexperiments_tpu.accel import bvh as bvh_mod
+
+    v0, e1, e2 = (np.asarray(scene[k]) for k in ("v0", "e1", "e2"))
+    n = int(scene["num_tris"])
+    packed, _ = pack_bvh(
+        bvh_mod.to_node_arrays(bvh_mod.build_bvh(v0, e1, e2, n, 8)),
+        v0, e1, e2, 8,
+    )
+    sc_bvh["bvh"] = {k: jnp.asarray(v) for k, v in packed.items()}
+    np.testing.assert_allclose(
+        _render_albedo(sc_bvh), _render_albedo(scene), atol=1e-6
+    )
 
 
 def test_cornell_tex_end_to_end():

@@ -35,8 +35,8 @@ def test_rebake_material_matches_fresh_build():
     base = build(materials)
     rebaked = rebake_material(base, 0, edited)
     fresh = build([edited] + materials[1:])
-    np.testing.assert_allclose(
-        np.asarray(rebaked["attr_pack"]), np.asarray(fresh["attr_pack"])
+    np.testing.assert_array_equal(
+        np.asarray(rebaked["mat_id"]), np.asarray(fresh["mat_id"])
     )
     for k in fresh["materials"]:
         np.testing.assert_allclose(
@@ -55,10 +55,10 @@ def test_material_keys_rebake_and_restart():
     app.step(*[x for x in [app.handle_keys([])[0]]])  # one frame
     pipe = app.pipelines[0]
     assert pipe.accum_count > 0
-    before = np.asarray(pipe.scene_data["attr_pack"]).copy()
+    before = np.asarray(pipe.scene_data["materials"]["roughness"]).copy()
     r0 = app.mat0.roughness
     app.handle_keys(["r"])  # roughness -0.1
-    after = np.asarray(pipe.scene_data["attr_pack"])
+    after = np.asarray(pipe.scene_data["materials"]["roughness"])
     assert not np.array_equal(before, after)
     assert abs(app.mat0.roughness - max(0.0, r0 - 0.1)) < 1e-6
     # dirty flag -> accumulation restarts on the next update
@@ -184,10 +184,11 @@ def test_ui_state_roundtrip(tmp_path):
         app.pipelines[0].options["debug"]
     )
     np.testing.assert_allclose(app2.mat0.roughness, app.mat0.roughness)
-    np.testing.assert_allclose(
-        np.asarray(app2.pipelines[0].scene_data["attr_pack"]),
-        np.asarray(app.pipelines[0].scene_data["attr_pack"]),
-    )
+    for k, v in app.pipelines[0].scene_data["materials"].items():
+        np.testing.assert_allclose(
+            np.asarray(app2.pipelines[0].scene_data["materials"][k]),
+            np.asarray(v),
+        )
     lt = app.pipelines[0].scene_data["lights"]["dir"]
     lt2 = app2.pipelines[0].scene_data["lights"]["dir"]
     np.testing.assert_allclose(float(lt2["intensity"]), float(lt["intensity"]))
